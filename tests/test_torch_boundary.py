@@ -1,0 +1,120 @@
+"""The port's boundaries: it never reaches JAX or ``can_tpu``, and it runs
+on the CPU only when asked.
+
+* every module of ``can_tpu_torch`` imports in a fresh interpreter where
+  ``jax`` and ``can_tpu`` are blocked (the blocker matches whole package
+  names, so ``can_tpu_torch`` itself is not caught by the shared prefix);
+* a source scan of ``can_tpu_torch/`` and ``chip_smoke.py`` finds no
+  import of jax, flax, optax, orbax or ``can_tpu``;
+* without a CUDA device, the serve CLI without ``--platform cpu`` exits
+  non-zero naming the missing card.
+"""
+
+import ast
+import pkgutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+import can_tpu_torch
+from can_tpu_torch.device import NoCudaDeviceError, resolve_device
+
+ROOT = Path(__file__).resolve().parents[1]
+PKG = ROOT / "can_tpu_torch"
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "can_tpu")
+
+
+def _forbidden(name: str) -> bool:
+    return any(name == f or name.startswith(f + ".") for f in FORBIDDEN)
+
+
+def _port_modules():
+    return sorted(m.name for m in pkgutil.walk_packages(
+        can_tpu_torch.__path__, prefix="can_tpu_torch."))
+
+
+def test_port_modules_are_found():
+    mods = _port_modules()
+    for m in ("can_tpu_torch.ops.cuda_context", "can_tpu_torch.serve.service",
+              "can_tpu_torch.cli.serve", "can_tpu_torch.models.cannet"):
+        assert m in mods
+    assert (PKG / "csrc" / "context_fused.cu").is_file()
+
+
+def test_every_module_imports_with_jax_and_can_tpu_blocked():
+    script = f"""
+import importlib, importlib.abc, sys
+FORBIDDEN = {FORBIDDEN!r}
+def bad(name):
+    return any(name == f or name.startswith(f + ".") for f in FORBIDDEN)
+for name in [n for n in sys.modules if bad(n)]:
+    del sys.modules[name]
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if bad(name):
+            raise ImportError("blocked: " + name)
+        return None
+sys.meta_path.insert(0, Block())
+for mod in {_port_modules()!r}:
+    importlib.import_module(mod)
+leaked = sorted(n for n in sys.modules if bad(n))
+assert not leaked, leaked
+try:
+    import can_tpu
+except ImportError:
+    pass
+else:
+    raise AssertionError("the blocker let can_tpu through")
+print("ok", len({_port_modules()!r}))
+"""
+    proc = subprocess.run([sys.executable, "-c", script], cwd=ROOT,
+                          capture_output=True, text=True, timeout=240)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert proc.stdout.startswith("ok")
+
+
+def test_source_scan_finds_no_jax_or_can_tpu_import():
+    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 15
+    offenders = []
+    for f in files:
+        for node in ast.walk(ast.parse(f.read_text(), filename=str(f))):
+            names = []
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.module:
+                names = [node.module]
+            offenders += [(str(f.relative_to(ROOT)), n) for n in names
+                          if _forbidden(n)]
+    assert not offenders, offenders
+
+
+def test_resolve_device_cpu_only_when_asked():
+    assert resolve_device("cpu") == torch.device("cpu")
+    with pytest.raises(ValueError):
+        resolve_device("tpu")
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is visible: the no-card refusal needs none")
+    for platform in ("default", "gpu"):
+        with pytest.raises(NoCudaDeviceError, match="CUDA"):
+            resolve_device(platform)
+
+
+def test_serve_cli_without_a_card_exits_nonzero(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is visible: the no-card refusal needs none")
+    from can_tpu_torch.models import random_state_dict
+
+    pth = tmp_path / "w.pth"
+    torch.save({k: torch.from_numpy(v) for k, v in random_state_dict(0).items()},
+               pth)
+    proc = subprocess.run(
+        [sys.executable, "-m", "can_tpu_torch.cli.serve", "--torch-pth",
+         str(pth), "--port", "0"], cwd=ROOT, capture_output=True, text=True,
+        timeout=240)
+    assert proc.returncode != 0
+    assert "CUDA" in proc.stderr and "--platform cpu" in proc.stderr
+    assert "listening" not in proc.stdout
