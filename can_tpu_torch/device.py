@@ -30,3 +30,12 @@ def resolve_device(platform: str = "default") -> torch.device:
             "this program runs on an NVIDIA GPU — pass --platform cpu to run "
             "on the CPU instead")
     return torch.device("cuda", 0)
+
+
+def use_full_f32() -> None:
+    """f32 means f32 on the card: cuDNN runs f32 convolutions in TF32 by
+    default (about three decimal digits), so turn TF32 off for
+    convolutions and matmuls.  Process-wide PyTorch settings."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")

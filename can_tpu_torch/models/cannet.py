@@ -1,20 +1,28 @@
 """CANNet (CVPR'19 Context-Aware Crowd Counting) as a PyTorch module.
 
 Counterpart of ``can_tpu/models/cannet.py`` (``cannet_apply`` :152,
-``context_block`` :278) for the plain, non-BN model:
+``context_block`` :278, ``_batch_norm`` :312), plain and BN variants:
 
 * VGG-16 frontend: 10 conv+ReLU, 3 maxpools -> 1/8 resolution, 512 ch;
 * context block: for S in (1, 2, 3, 6) adaptive-avg-pool to S x S, biasless
   1x1 conv, align-corners upsample, gate = sigmoid(1x1(sm - fv));
   fi = sum(gate * sm) / (sum(gate) + 1e-12); concat(fv, fi) -> 1024 ch;
-* backend: 6 dilation-2 3x3 convs + a 1x1 output conv -> (N, H/8, W/8, 1).
+* backend: 6 dilation-2 3x3 convs + a 1x1 output conv -> (N, H/8, W/8, 1);
+* ``batch_norm=True`` (the ``--syncBN`` model): a BatchNorm after each of
+  the 16 frontend/backend convs, normalised by ``_batch_norm`` — masked
+  moments through the ``bn_ops`` seam (``ops/bn_moments.py``), never
+  ``F.batch_norm``, which cannot mask bucket padding and fill slots.
 
-The parameters carry the reference ``state_dict`` layout
-(``frontend.{0,2,5,...}``, ``backend.{0,2,...}``, ``output_layer``,
-``conv{s}_{1,2}``), so a reference ``.pth`` loads with ``strict=True``.
-The forward takes and returns NHWC; the context tail goes through the
-``context_fused`` seam, which by default is ``ops.cuda_context``: the CUDA
-kernel on a CUDA tensor, its plain version on a CPU tensor.
+The parameters carry the reference ``state_dict`` layout of
+``make_layers(batch_norm=...)`` (plain: ``frontend.{0,2,5,...}``; BN:
+conv, BatchNorm2d, ReLU per entry, so ``frontend.{0,1,3,4,7,8,...}``),
+``output_layer`` and ``conv{s}_{1,2}``, so a reference ``.pth`` loads with
+``strict=True``.  The forward takes and returns NHWC; the context tail
+goes through the ``context_fused`` seam, which by default is
+``ops.cuda_context``: the CUDA kernel on a CUDA tensor, its plain version
+on a CPU tensor.  In train mode the BN running statistics are updated in
+place under ``no_grad`` (the PyTorch idiom for the JAX package's returned
+``new_stats``).
 """
 
 from __future__ import annotations
@@ -26,6 +34,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from can_tpu_torch.ops.bn_moments import BNOps
 from can_tpu_torch.ops.conv import conv1x1, conv2d
 from can_tpu_torch.ops.cuda_context import make_fused_context
 from can_tpu_torch.ops.pooling import adaptive_avg_pool2d, max_pool2d
@@ -36,39 +45,51 @@ CONTEXT_SCALES = (1, 2, 3, 6)
 FEAT_CH = 512
 
 
-def _make_layers(cfg, in_channels: int, dilation: int) -> nn.Sequential:
-    """The reference ``make_layers``: conv+ReLU per entry, MaxPool per 'M'
-    (these Sequential indices ARE the state-dict keys)."""
+BN_MOMENTUM = 0.1
+BN_EPS = 1e-5
+
+
+def _make_layers(cfg, in_channels: int, dilation: int,
+                 batch_norm: bool = False) -> nn.Sequential:
+    """The reference ``make_layers``: conv(+BatchNorm)+ReLU per entry,
+    MaxPool per 'M' (these Sequential indices ARE the state-dict keys)."""
     layers = []
     for v in cfg:
         if v == "M":
             layers.append(nn.MaxPool2d(kernel_size=2, stride=2))
         else:
-            layers += [nn.Conv2d(in_channels, v, 3, padding=dilation,
-                                 dilation=dilation), nn.ReLU(inplace=True)]
+            layers.append(nn.Conv2d(in_channels, v, 3, padding=dilation,
+                                    dilation=dilation))
+            if batch_norm:
+                layers.append(nn.BatchNorm2d(v))
+            layers.append(nn.ReLU(inplace=True))
             in_channels = v
     return nn.Sequential(*layers)
 
 
 class CANNet(nn.Module):
-    """The plain CANNet.
+    """CANNet, plain or with BatchNorm.
 
     device/dtype: where and in what dtype the parameters live.
     seed: an int initialises the weights from ``random_state_dict(seed)``
-    (N(0, 0.01), zero biases — the reference init); None leaves them
-    uninitialised for a ``load_state_dict`` to fill.
+    (N(0, 0.01), zero biases — the reference init; BN scale 1, bias 0,
+    running mean 0, var 1); None leaves them uninitialised for a
+    ``load_state_dict`` to fill.
+    batch_norm: the BN variant (``make_layers(batch_norm=True)``).
     context_fused: replaces the context-tail seam ``(fv, aves, weights,
     hw) -> fi``; None keeps ``ops.cuda_context``'s (the CUDA kernel on a
     CUDA tensor, its plain version on a CPU tensor).
     """
 
     def __init__(self, *, device=None, dtype=torch.float32,
-                 seed: Optional[int] = 0, context_fused=None):
+                 seed: Optional[int] = 0, batch_norm: bool = False,
+                 context_fused=None):
         super().__init__()
+        self.batch_norm = bool(batch_norm)
         # built on the meta device: no storage, no draw from the global RNG
         with torch.device("meta"):
-            self.frontend = _make_layers(FRONTEND_CFG, 3, 1)
-            self.backend = _make_layers(BACKEND_CFG, 2 * FEAT_CH, 2)
+            self.frontend = _make_layers(FRONTEND_CFG, 3, 1, batch_norm)
+            self.backend = _make_layers(BACKEND_CFG, 2 * FEAT_CH, 2, batch_norm)
             self.output_layer = nn.Conv2d(BACKEND_CFG[-1], 1, kernel_size=1)
             for s in CONTEXT_SCALES:
                 for j in (1, 2):
@@ -77,8 +98,9 @@ class CANNet(nn.Module):
         self.to_empty(device=device or "cpu")
         self.to(dtype)
         if seed is not None:
-            self.load_state_dict({k: torch.from_numpy(v) for k, v in
-                                  random_state_dict(seed).items()})
+            self.load_state_dict({k: torch.from_numpy(np.asarray(v)) for k, v in
+                                  random_state_dict(seed, batch_norm=batch_norm)
+                                  .items()})
         self.context_fused = context_fused or make_fused_context()
 
     def context_params(self) -> Dict[str, Dict[str, torch.Tensor]]:
@@ -89,28 +111,124 @@ class CANNet(nn.Module):
             "weight": getattr(self, f"conv{s}_2").weight[:, :, 0, 0].t()}
             for s in CONTEXT_SCALES}
 
-    def forward(self, x: torch.Tensor, *, compute_dtype=None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, *, train: bool = False,
+                pixel_mask: Optional[torch.Tensor] = None,
+                sample_mask: Optional[torch.Tensor] = None,
+                bn_ops: Optional[BNOps] = None,
+                compute_dtype=None) -> torch.Tensor:
         """(N, H, W, 3) NHWC image batch -> (N, H/8, W/8, 1) density map,
-        computed in ``compute_dtype`` (default: x's dtype)."""
+        computed in ``compute_dtype`` (default: x's dtype).
+
+        BN model only: ``train`` takes the batch moments (through
+        ``bn_ops``; None = two-pass) and updates the running statistics in
+        place; otherwise the running statistics normalise.
+        ``pixel_mask`` ((N, H/8, W/8, 1)) and ``sample_mask`` ((N,))
+        restrict the train-mode moments to real pixels of real images:
+        the /8 mask is upsampled by 8 and subsampled by each max-pool
+        (valid regions are /8-snapped, so this is exact).
+        """
         if compute_dtype is not None:
             x = x.to(compute_dtype)
         dt = x.dtype
-        for layer in self.frontend:
-            if isinstance(layer, nn.Conv2d):
-                x = F.relu(conv2d(x, layer.weight.to(dt), layer.bias.to(dt)),
-                           inplace=True)
-            elif isinstance(layer, nn.MaxPool2d):
-                x = max_pool2d(x)
+        bn_mask = None
+        if self.batch_norm and train and pixel_mask is not None:
+            m8 = pixel_mask.float()
+            if sample_mask is not None:
+                m8 = m8 * sample_mask.float()[:, None, None, None]
+            ds = x.shape[-3] // m8.shape[-3]  # 8 at input resolution
+            bn_mask = m8.repeat_interleave(ds, dim=-3).repeat_interleave(ds, dim=-2)
+        x, bn_mask = self._stack(self.frontend, x, dt, 1, train, bn_mask, bn_ops)
         fv = x
         fi = context_block(self.context_params(), fv,
                            context_fused=self.context_fused)
         x = torch.cat([fv, fi], dim=-1)
-        for layer in self.backend:
-            if isinstance(layer, nn.Conv2d):
-                x = F.relu(conv2d(x, layer.weight.to(dt), layer.bias.to(dt),
-                                  dilation=2), inplace=True)
+        # at /8 the mask is back at pixel_mask resolution
+        x, _ = self._stack(self.backend, x, dt, 2, train, bn_mask, bn_ops)
         p = self.output_layer
         return conv2d(x, p.weight.to(dt), p.bias.to(dt), padding=0)
+
+    def _stack(self, layers: nn.Sequential, x, dt, dilation, train, bn_mask,
+               bn_ops):
+        for layer in layers:
+            if isinstance(layer, nn.Conv2d):
+                x = conv2d(x, layer.weight.to(dt), layer.bias.to(dt),
+                           dilation=dilation)
+            elif isinstance(layer, nn.BatchNorm2d):
+                x = self._bn(layer, x, train, bn_mask, bn_ops)
+            elif isinstance(layer, nn.ReLU):
+                x = F.relu(x, inplace=True)
+            elif isinstance(layer, nn.MaxPool2d):
+                x = max_pool2d(x)
+                if bn_mask is not None:
+                    bn_mask = bn_mask[:, ::2, ::2, :]
+        return x, bn_mask
+
+    @staticmethod
+    def _bn(layer: nn.BatchNorm2d, y, train, mask, bn_ops):
+        stats = {"mean": layer.running_mean, "var": layer.running_var}
+        out, updated = _batch_norm(y, {"scale": layer.weight, "bias": layer.bias},
+                                   stats, train, BN_MOMENTUM, mask=mask,
+                                   bn_ops=bn_ops)
+        if updated is not None:
+            with torch.no_grad():
+                layer.running_mean.copy_(updated["mean"])
+                layer.running_var.copy_(updated["var"])
+                layer.num_batches_tracked += 1
+        return out
+
+
+def _batch_norm(y, bn_params: Mapping, stats: Optional[Mapping], train: bool,
+                momentum: float, eps: float = BN_EPS, *, axes=None,
+                mask=None, bn_ops: Optional[BNOps] = None):
+    """torch-semantics BatchNorm2d over NHWC (``_batch_norm`` of
+    can_tpu/models/cannet.py:312): train mode normalises with the biased
+    batch variance and returns running stats updated with the unbiased
+    one; eval mode normalises with ``stats``.  Returns ``(out, updated)``
+    (``updated`` None in eval mode, detached otherwise).
+
+    * moments in f32 at least (bf16 and f32 inputs take f32, f64 keeps
+      f64), normalised in that dtype, cast back to y's dtype;
+    * ``mask`` ((N, h, w, 1) validity weights): moments are weighted sums
+      over the weighted count s0, floored at 1 (an all-fill batch gives
+      mean = var = 0, not NaN), unbiased by ``s0 / (s0 - 1)``, and an
+      all-fill batch (s0 = 0) leaves the running stats unchanged;
+    * ``bn_ops`` picks how the masked moments are reduced (two-pass when
+      None); ``axes`` must be empty on one GPU (see ops/bn_moments.py).
+    """
+    acc = torch.float64 if y.dtype == torch.float64 else torch.float32
+    yf = y.to(acc)
+    updated = None
+    if train:
+        if bn_ops is None:
+            bn_ops = BNOps()
+        if mask is not None:
+            m = mask.to(acc)
+            # y in its own dtype: the kernel reads bf16 as it is
+            mean, var, s0 = bn_ops.masked_moments(y, m, axes)
+            unbiased = var * (s0 / torch.clamp(s0 - 1.0, min=1.0))
+            momentum = momentum * (s0 > 0.0).to(acc)
+        elif axes:
+            mean, var = bn_ops.global_moments(yf, axes)
+        else:
+            mean = torch.mean(yf, dim=(0, 1, 2))
+            var = torch.var(yf, dim=(0, 1, 2), unbiased=False)
+        if mask is None:
+            n = y.shape[0] * y.shape[1] * y.shape[2]
+            unbiased = var * (n / max(n - 1, 1))
+        with torch.no_grad():
+            if stats is not None:
+                updated = {
+                    "mean": (1 - momentum) * stats["mean"] + momentum * mean,
+                    "var": (1 - momentum) * stats["var"] + momentum * unbiased,
+                }
+            else:
+                updated = {"mean": mean.detach(), "var": unbiased.detach()}
+    else:
+        mean, var = stats["mean"], stats["var"]
+    inv = torch.rsqrt(var + eps)
+    out = (yf - mean) * inv * bn_params["scale"].to(acc)
+    out = out + bn_params["bias"].to(acc)
+    return out.to(y.dtype), updated
 
 
 def context_block(cparams: Mapping, fv: torch.Tensor, *,
@@ -133,15 +251,28 @@ def context_block(cparams: Mapping, fv: torch.Tensor, *,
     return context_fused(fv, aves, weights, hw)
 
 
-def reference_param_shapes() -> Dict[str, tuple]:
-    """Reference state-dict keys -> shapes (OIHW), in registration order
-    (frontend, backend, output, conv{s}_{j})."""
+def reference_param_shapes(batch_norm: bool = False) -> Dict[str, tuple]:
+    """Reference state-dict keys -> shapes (OIHW; BN vectors; () for
+    ``num_batches_tracked``), in registration order (frontend, backend,
+    output, conv{s}_{j})."""
     return {k: tuple(v.shape) for k, v in
-            CANNet(device="meta", seed=None).state_dict().items()}
+            CANNet(device="meta", seed=None, batch_norm=batch_norm)
+            .state_dict().items()}
 
 
-def random_state_dict(seed: int, *, he: bool = False) -> Dict[str, np.ndarray]:
-    """Reference-layout f32 weights from a numpy seed.
+def _bn_prefixes(batch_norm: bool) -> set:
+    """State-dict prefixes (``frontend.1.`` ...) of the BatchNorm layers."""
+    if not batch_norm:
+        return set()
+    model = CANNet(device="meta", seed=None, batch_norm=True)
+    return {f"{name}." for name, mod in model.named_modules()
+            if isinstance(mod, nn.BatchNorm2d)}
+
+
+def random_state_dict(seed: int, *, he: bool = False,
+                      batch_norm: bool = False) -> Dict[str, np.ndarray]:
+    """Reference-layout weights from a numpy seed (f32; int64 for
+    ``num_batches_tracked``).
 
     Default: N(0, 0.01) with zero biases, the reference init
     (model/CANNet.py:93-101).  Its activations shrink layer by layer (the
@@ -149,11 +280,23 @@ def random_state_dict(seed: int, *, he: bool = False) -> Dict[str, np.ndarray]:
     ``he=True`` rescales the same normals to N(0, 2 / fan_in) for the
     convs and N(0, 1 / C) for the context 1x1s, with biases 0.01: O(1)
     activations end to end, gates that vary, counts of order one and up.
+    ``batch_norm=True``: the BN layout, with torch's BatchNorm2d defaults
+    (scale 1, bias 0, running mean 0, var 1, 0 batches tracked); the convs
+    draw the same normals in the same order as the plain model's.
     """
     rng = np.random.default_rng(seed)
+    bn = _bn_prefixes(batch_norm)
     out = {}
-    for k, shape in reference_param_shapes().items():
-        if k.endswith(".bias"):
+    for k, shape in reference_param_shapes(batch_norm).items():
+        prefix, leaf = k.rsplit(".", 1)
+        if prefix + "." in bn:
+            out[k] = {"weight": np.ones(shape, np.float32),
+                      "bias": np.zeros(shape, np.float32),
+                      "running_mean": np.zeros(shape, np.float32),
+                      "running_var": np.ones(shape, np.float32),
+                      "num_batches_tracked": np.zeros(shape, np.int64)}[leaf]
+            continue
+        if leaf == "bias":
             out[k] = np.full(shape, 0.01 if he else 0.0, np.float32)
             continue
         std = 0.01

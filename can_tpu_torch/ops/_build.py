@@ -5,8 +5,9 @@ shared library with a plain C interface (no PyTorch headers: seconds, not
 minutes) and loaded with ``ctypes``.  Libraries land in
 ``<checkout>/build/can_tpu_torch/<name>-<hash>/``, keyed by a hash of the
 source and the flags, so an edited source rebuilds and an unchanged one
-is a cache hit.  A missing ``nvcc`` or a failed build raises; there is
-no fallback.
+is a cache hit.  ``load_kernel_libraries`` starts one ``nvcc`` per missing
+library, all at once.  A missing ``nvcc`` or a failed build raises; there
+is no fallback.
 
 The package runs from a checkout of the repository (the directory that
 holds ``pyproject.toml`` and the gitignored ``build/``); an installed copy
@@ -23,7 +24,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict
+from typing import Dict, List, Sequence
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 CHECKOUT = Path(__file__).resolve().parents[2]
@@ -61,41 +62,57 @@ def _source_hash(src: Path) -> str:
     return h.hexdigest()[:16]
 
 
-def load_kernel_library(name: str) -> ctypes.CDLL:
-    """Build (if needed) and load ``csrc/<name>.cu``; returns the CDLL.
-    Thread-safe; a second call in the process returns the loaded library."""
+def load_kernel_libraries(names: Sequence[str]) -> List[ctypes.CDLL]:
+    """Build (if needed) and load ``csrc/<name>.cu`` for every name; the
+    missing libraries compile in parallel, one ``nvcc`` each.  Returns the
+    CDLLs in order.  Thread-safe; a library loaded once in the process is
+    returned as it is."""
     with _lock:
-        lib = _loaded.get(name)
-        if lib is not None:
-            return lib
-        if not (CHECKOUT / "pyproject.toml").is_file():
+        todo = [n for n in dict.fromkeys(names) if n not in _loaded]
+        if todo and not (CHECKOUT / "pyproject.toml").is_file():
             raise RuntimeError(
                 f"can_tpu_torch builds its CUDA kernels into <checkout>/build "
                 f"and runs from a checkout of the repository; {CHECKOUT} is "
                 f"not one (no pyproject.toml)")
-        src = CSRC / f"{name}.cu"
-        out_dir = BUILD_ROOT / f"{name}-{_source_hash(src)}"
-        so = out_dir / f"lib{name}.so"
         t0 = time.perf_counter()
-        hit = so.is_file()
-        ptxas = ""
-        if not hit:
-            out_dir.mkdir(parents=True, exist_ok=True)
-            tmp = out_dir / f"lib{name}.so.tmp{os.getpid()}"
-            cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed building {src} "
-                                   f"(exit {proc.returncode}):\n"
-                                   f"{proc.stdout}\n{proc.stderr}")
-            ptxas = proc.stderr
-            (out_dir / "ptxas.log").write_text(ptxas)
-            os.replace(tmp, so)  # atomic: a concurrent build sees all or none
-        elif (out_dir / "ptxas.log").is_file():
-            ptxas = (out_dir / "ptxas.log").read_text()
-        lib = ctypes.CDLL(str(so))
-        build_info[name] = {"seconds": time.perf_counter() - t0,
-                            "cache_hit": hit, "path": str(so),
-                            "ptxas": ptxas}
-        _loaded[name] = lib
-        return lib
+        jobs = {}
+        for name in todo:
+            src = CSRC / f"{name}.cu"
+            out_dir = BUILD_ROOT / f"{name}-{_source_hash(src)}"
+            so = out_dir / f"lib{name}.so"
+            job = {"src": src, "out_dir": out_dir, "so": so,
+                   "hit": so.is_file(), "proc": None}
+            if not job["hit"]:
+                out_dir.mkdir(parents=True, exist_ok=True)
+                job["tmp"] = out_dir / f"lib{name}.so.tmp{os.getpid()}"
+                cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(job["tmp"]), str(src)]
+                job["proc"] = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                               stderr=subprocess.PIPE, text=True)
+            jobs[name] = job
+        failed = []
+        for name, job in jobs.items():
+            ptxas = ""
+            if job["proc"] is not None:
+                stdout, stderr = job["proc"].communicate()
+                if job["proc"].returncode != 0:
+                    failed.append(f"nvcc failed building {job['src']} (exit "
+                                  f"{job['proc'].returncode}):\n{stdout}\n{stderr}")
+                    continue
+                ptxas = stderr
+                (job["out_dir"] / "ptxas.log").write_text(ptxas)
+                # atomic: a concurrent build sees all or none
+                os.replace(job["tmp"], job["so"])
+            elif (job["out_dir"] / "ptxas.log").is_file():
+                ptxas = (job["out_dir"] / "ptxas.log").read_text()
+            _loaded[name] = ctypes.CDLL(str(job["so"]))
+            build_info[name] = {"seconds": time.perf_counter() - t0,
+                                "cache_hit": job["hit"], "path": str(job["so"]),
+                                "ptxas": ptxas}
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        return [_loaded[n] for n in names]
+
+
+def load_kernel_library(name: str) -> ctypes.CDLL:
+    """Build (if needed) and load ``csrc/<name>.cu``; returns the CDLL."""
+    return load_kernel_libraries([name])[0]

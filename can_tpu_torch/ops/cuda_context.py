@@ -20,10 +20,12 @@ intermediates the plain version materialises ever touches device memory;
 its products are f32 FMAs on CUDA cores (tensor cores are later work).
 
 On a CPU tensor the seam runs the plain PyTorch version; on a CUDA tensor
-it launches the kernel or raises — no fallback.  Forward only: the
-training slice backs the kernel with a ``torch.autograd.Function`` whose
-backward re-differentiates the plain version (the JAX custom VJP's
-recompute-in-backward).
+it launches the kernel or raises — no fallback.  Gradients: on the card
+the kernel runs inside a ``torch.autograd.Function`` (``ContextTail``)
+whose backward recomputes the plain version on the saved inputs and
+returns its VJP for fv, avew and wmat — the JAX custom VJP's
+recompute-in-backward (pallas_context.py:177-191).  The backward is plain
+PyTorch: the JAX package has no backward kernel either.
 """
 
 from __future__ import annotations
@@ -110,12 +112,6 @@ def context_tail_cuda(fv: torch.Tensor, avew: torch.Tensor, uh: torch.Tensor,
     if not fv.is_cuda:
         raise ValueError(f"context_tail_cuda runs on CUDA tensors, got fv on "
                          f"{fv.device} (context_tail dispatches by device)")
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (fv, avew, uh, wmat)):
-        raise RuntimeError(
-            "the context_fused CUDA kernel is forward-only; gradients come "
-            "with the training slice (an autograd.Function over the plain "
-            "version) — run under torch.no_grad()/inference_mode()")
     if fv.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"context_fused takes f32 or bf16 fv, got {fv.dtype}")
     if fv.dim() != 4:
@@ -151,13 +147,36 @@ def context_tail_cuda(fv: torch.Tensor, avew: torch.Tensor, uh: torch.Tensor,
     return out
 
 
+class ContextTail(torch.autograd.Function):
+    """The kernel forward with the JAX custom VJP's backward: recompute
+    ``context_tail_reference`` on the saved inputs and differentiate it
+    (uh, a constant interpolation matrix, gets no gradient)."""
+
+    @staticmethod
+    def forward(ctx, fv, avew, uh, wmat):
+        ctx.save_for_backward(fv, avew, uh, wmat)
+        return context_tail_cuda(fv, avew, uh, wmat)
+
+    @staticmethod
+    def backward(ctx, g):
+        fv, avew, uh, wmat = ctx.saved_tensors
+        need = ctx.needs_input_grad
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_(need[i] and i != 2)
+                      for i, t in enumerate((fv, avew, uh, wmat))]
+            wrt = [t for t in leaves if t.requires_grad]
+            grads = iter(torch.autograd.grad(
+                context_tail_reference(*leaves), wrt, g) if wrt else ())
+        return tuple(next(grads) if t.requires_grad else None for t in leaves)
+
+
 def context_tail(fv, avew, uh, wmat) -> torch.Tensor:
-    """Device dispatch: the plain version for a CPU tensor, the kernel for
-    a CUDA tensor."""
+    """Device dispatch: the plain version for a CPU tensor, the kernel
+    (with its recompute backward) for a CUDA tensor."""
     if fv.device.type == "cpu":
         return context_tail_reference(fv, avew, uh, wmat)
     if fv.device.type == "cuda":
-        return context_tail_cuda(fv, avew, uh, wmat)
+        return ContextTail.apply(fv, avew, uh, wmat)
     raise ValueError(f"context_fused runs on cpu or cuda, got {fv.device}")
 
 

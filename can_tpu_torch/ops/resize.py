@@ -42,8 +42,11 @@ def _upsample_matrix_on(in_size: int, out_size: int,
                         device: str) -> torch.Tensor:
     # one host->device copy per (in, out, device) for the life of the
     # process: a pageable copy inside the forward would stall the host
-    # until the device caught up
-    return torch.from_numpy(_upsample_matrix_np(in_size, out_size)).to(device)
+    # until the device caught up.  Made outside inference mode even when
+    # the first caller is an eval or serve forward: an inference tensor
+    # in the cache would break every later training forward at the shape.
+    with torch.inference_mode(False):
+        return torch.from_numpy(_upsample_matrix_np(in_size, out_size)).to(device)
 
 
 def upsample_matrix(in_size: int, out_size: int,

@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from can_tpu_torch.data.batching import Batch, pad_batch
+from can_tpu_torch.device import use_full_f32
 from can_tpu_torch.models.cannet import CANNet
 from can_tpu_torch.serve.quant import (
     compute_dtype_for,
@@ -56,9 +57,7 @@ class ServeEngine:
         self.ds = int(ds)
         self.compute_dtype = compute_dtype_for(serve_dtype)
         if self.device.type == "cuda" and serve_dtype == "f32":
-            torch.backends.cudnn.allow_tf32 = False
-            torch.backends.cuda.matmul.allow_tf32 = False
-            torch.set_float32_matmul_precision("highest")
+            use_full_f32()
         model = CANNet(device=self.device, dtype=storage_dtype_for(serve_dtype),
                        seed=None)
         model.load_state_dict(quantize_tree(state_dict, serve_dtype),

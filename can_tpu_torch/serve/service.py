@@ -21,6 +21,7 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 
 from can_tpu_torch.data.dataset import normalize_host
+from can_tpu_torch.data.imageio import resize_linear
 from can_tpu_torch.serve.batcher import MicroBatcher
 from can_tpu_torch.serve.engine import ServeEngine
 from can_tpu_torch.serve.queue import (
@@ -38,36 +39,6 @@ from can_tpu_torch.utils.profiling import StepTimer
 STREAMS_MESSAGE = ("stream sessions (stream_id/frame_seq) are not ported yet: "
                    "they come with the serve scheduler/streams/fleet slice of "
                    "can_tpu_torch")
-
-
-def _linear_taps(src: int, dst: int):
-    """Source rows and weights of a half-pixel-centre bilinear resize
-    (OpenCV's INTER_LINEAR rule: clamp at both edges)."""
-    f = ((np.arange(dst, dtype=np.float64) + 0.5) * (src / dst)
-         - 0.5).astype(np.float32)
-    i0 = np.floor(f).astype(np.int64)
-    frac = f - i0.astype(np.float32)
-    low = i0 < 0
-    frac[low], i0[low] = 0.0, 0
-    high = i0 >= src - 1
-    frac[high], i0[high] = 0.0, src - 1
-    return i0, np.minimum(i0 + 1, src - 1), frac
-
-
-def resize_linear(image: np.ndarray, out_h: int, out_w: int) -> np.ndarray:
-    """Bilinear HWC resize with half-pixel centres, computed in f32; u8
-    input is rounded back to u8 (within one level of ``cv2.resize``)."""
-    h, w = image.shape[:2]
-    y0, y1, fy = _linear_taps(h, out_h)
-    x0, x1, fx = _linear_taps(w, out_w)
-    img = image.astype(np.float32)
-    fy = fy[:, None, None]
-    rows = img[y0] * (1.0 - fy) + img[y1] * fy
-    fx = fx[None, :, None]
-    out = rows[:, x0] * (1.0 - fx) + rows[:, x1] * fx
-    if image.dtype == np.uint8:
-        return np.clip(np.rint(out), 0, 255).astype(np.uint8)
-    return out.astype(image.dtype)
 
 
 def prepare_image(image: np.ndarray, *, ds: int = 8,

@@ -1,16 +1,23 @@
 #!/usr/bin/env python3
 """On-card smoke run of can_tpu_torch: the quickest proof that the port
-builds and serves on an NVIDIA GPU.
+builds, serves and trains on an NVIDIA GPU.
 
     python3 chip_smoke.py          # from the root of a checkout, one GPU
 
 Phases (any failure exits non-zero; nothing is printed as a result then):
 
-1. build    — compile csrc/context_fused.cu from the checkout with nvcc;
-2. kernels  — the context kernel against its plain PyTorch version on the
-              card, at the full feature map of the largest bucket
-              (8, 96, 128, 512) and at a ragged (2, 47, 61, 512), in f32
-              and bf16; warm CUDA-event medians of both;
+1. build    — compile csrc/context_fused.cu and csrc/bn_moments.cu from
+              the checkout, one nvcc each, in parallel; ptxas registers
+              and spills;
+2. kernels  — each kernel against its plain PyTorch version on the card:
+              the context kernel at the full feature map of the largest
+              serving bucket (8, 96, 128, 512) and a ragged (2, 47, 61,
+              512); the BN moment-sums kernel at the largest training
+              layer (8, 576, 768, 64), the training feature map (8, 72,
+              96, 512) and a ragged (3, 37, 51, 128) with bucket padding
+              and a fill slot in the mask; f32 and bf16; warm CUDA-event
+              medians of kernel, plain version and the nearest library
+              call (``torch.var_mean``, unmasked, for the BN sums);
 3. serving  — a reference-layout .pth of seeded He-scaled normal weights
               (``random_state_dict(he=True)``: gates that vary, counts of
               order one and up) is served by the port's CLI path
@@ -25,7 +32,19 @@ Phases (any failure exits non-zero; nothing is printed as a result then):
               move by many tolerances when the gate matrices are zeroed
               (so the check sees the kernel's products); the kernel's
               launch counter must equal the batches the two services ran;
-4. report   — the card's name and power limit (nvidia-smi's own line), a
+4. training — a synthetic PNG dataset (20 train items mixed from 576x768,
+              560x744 and 480x640, 8 test items) is trained by the port's
+              CLI path (``cli.train.train``: --syncBN --bn-impl kernel
+              --batch-size 8 --pad-multiple 64, one epoch of 3 steps with
+              bucket padding and fill slots, eval, checkpoint) in f32 and
+              in bf16; the BN kernel must launch 16 times per step and the
+              context kernel once per step and per eval batch.  Then one
+              step on a fixed batch with the kernel against the same step
+              with ``onepass`` (loss and running stats), every BN layer's
+              kernel sums held against the plain version at the layer's
+              real input, and the step's time split (forward, backward,
+              optimizer) with each kernel's share;
+5. report   — the card's name and power limit (nvidia-smi's own line), a
               ``kernels`` JSON line,
               and last the result line ``{"ok": true, "device": {...}}``.
 
@@ -57,6 +76,19 @@ COUNT_RTOL = {"f32": 1e-4, "bf16": 2e-2}
 # the gate products must move the served counts by more than this many
 # tolerances (median over requests), or the parity check could not see them
 GATE_EFFECT = 5
+# BN moment sums vs their plain version: s1, s2 within this fraction of
+# sum|y m| and sum y^2 m per channel (f32 summation order only: bf16 is
+# widened exactly on both sides); s0 exact
+BN_RTOL = 1e-5
+BN_SHAPES = ((8, 576, 768, 64), (8, 72, 96, 512), (3, 37, 51, 128))
+# training phase: the dataset, the CLI's batch and the kernel-vs-onepass step
+TRAIN_SIZES = ((576, 768), (560, 744), (480, 640))
+TRAIN_ITEMS, TEST_ITEMS = 20, 8
+TRAIN_BATCH, TRAIN_PAD, TRAIN_STEPS = 8, 64, 3
+BN_LAYERS = 16  # 10 frontend + 6 backend
+# one step with the kernel vs the same step with onepass: loss and new
+# running stats (f32; sums differ only in summation order)
+STEP_RTOL = 1e-4
 # published dense peaks (FLOP/s by dtype, bytes/s), NVIDIA's H100 SXM data
 # sheet: the one card this script has run on; any other card is refused
 # until its peaks are added here
@@ -97,15 +129,39 @@ def time_ms(fn, reps: int = 10) -> float:
 
 
 def phase_build():
-    from can_tpu_torch.ops import _build, cuda_context
+    from can_tpu_torch.ops import _build, cuda_bn, cuda_context
 
+    _build.load_kernel_libraries([cuda_context.KERNEL, cuda_bn.KERNEL])
     cuda_context.load_library()
-    info = _build.build_info[cuda_context.KERNEL]
-    log(f"[build] {cuda_context.KERNEL}: {info['seconds']:.2f}s "
-        f"cache_hit={info['cache_hit']} -> {info['path']}")
-    for line in info["ptxas"].splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"[build]   ptxas: {line.strip()}")
+    cuda_bn.load_library()
+    for name in (cuda_context.KERNEL, cuda_bn.KERNEL):
+        info = _build.build_info[name]
+        log(f"[build] {name}: {info['seconds']:.2f}s "
+            f"cache_hit={info['cache_hit']} -> {info['path']}")
+        for line in info["ptxas"].splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"[build]   ptxas: {line.strip()}")
+
+
+def context_bound(fv, avew, uh, wmat, peaks: dict):
+    """Least time for the context tail on these inputs: the four gate
+    products, the row interpolation and the elementwise work at the peak
+    of fv's dtype, against each input read once and fi written once.
+    Returns (ms, "operations" or "bytes", FLOP, bytes)."""
+    import torch
+
+    from can_tpu_torch.ops import cuda_context as cc
+
+    b, h, w, c = fv.shape
+    n = b * h * w
+    flops = 2 * 4 * n * c * c + 2 * cc.N_ROWS * n * c + 6 * 4 * n * c
+    # inputs read once, fi (fv's shape and dtype) written once
+    nbytes = sum(t.numel() * t.element_size() for t in (fv, avew, uh, wmat, fv))
+    peak = peaks["bf16" if fv.dtype == torch.bfloat16 else "f32"]
+    by_ops = flops / peak * 1e3
+    by_bytes = nbytes / peaks["bytes"] * 1e3
+    return (max(by_ops, by_bytes), "operations" if by_ops >= by_bytes else "bytes",
+            flops, nbytes)
 
 
 def phase_kernels(peaks: dict) -> dict:
@@ -137,34 +193,26 @@ def phase_kernels(peaks: dict) -> dict:
             rtol, atol = TOL[name]
             diff = (got.float() - want.float()).abs()
             max_abs = float(diff.max())
-            bound = atol + rtol * want.float().abs()
+            limit = atol + rtol * want.float().abs()
             if not bool(torch.isfinite(got.float()).all()):
                 fail(f"context_fused {shape} {name}: non-finite output")
-            if not bool((diff <= bound).all()):
+            if not bool((diff <= limit).all()):
                 fail(f"context_fused {shape} {name}: max abs err {max_abs:.3e} "
                      f"exceeds rtol {rtol} / atol {atol}")
             worst = max(worst, max_abs)
             ms = time_ms(lambda: cc.context_tail_cuda(fv, avew, uh, wmat))
             plain_ms = time_ms(lambda: cc.context_tail_reference(fv, avew, uh, wmat))
-            n = b * h * w
-            flops = 2 * 4 * n * c * c + 2 * cc.N_ROWS * n * c + 6 * 4 * n * c
-            nbytes = sum(t.numel() * t.element_size()
-                         for t in (fv, avew, uh, wmat, got))
-            by_ops = flops / peaks[name] * 1e3
-            by_bytes = nbytes / peaks["bytes"] * 1e3
+            bound, by, flops, nbytes = context_bound(fv, avew, uh, wmat, peaks)
             log(f"[kernel] context_fused {shape} {name}: max abs err "
                 f"{max_abs:.3e} max rel err "
                 f"{max_abs / max(float(want.float().abs().max()), 1e-30):.3e} "
                 f"(rtol {rtol}, atol {atol}) | kernel {ms:.3f} ms, plain "
-                f"{plain_ms:.3f} ms | bound {max(by_ops, by_bytes):.3f} ms "
-                f"({'operations' if by_ops >= by_bytes else 'bytes'}: "
+                f"{plain_ms:.3f} ms | bound {bound:.3f} ms ({by}: "
                 f"{flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB) | "
                 f"{flops / ms / 1e9:.2f} TFLOP/s")
             rows[(shape, name)] = {"ms": ms, "plain_ms": plain_ms,
-                                   "bound_ms": max(by_ops, by_bytes),
-                                   "bound_by": ("operations" if by_ops >= by_bytes
-                                                else "bytes")}
-            del got, want, diff, bound
+                                   "bound_ms": bound, "bound_by": by}
+            del got, want, diff, limit
     full = rows[((8, 96, 128, 512), "f32")]
     return {"max_abs_err": worst, **full,
             "bf16_ms": rows[((8, 96, 128, 512), "bf16")]["ms"]}
@@ -385,6 +433,319 @@ def check_parity(run: dict, serve_dtype: str) -> None:
     engine.release_buffers()
 
 
+def _bn_mask(b: int, h: int, w: int, device) -> "torch.Tensor":
+    """Bucket padding (bottom quarter, right third) and, for b > 1, one
+    fill slot."""
+    import torch
+
+    m = torch.ones((b, h, w, 1), device=device)
+    m[:, h - h // 4:] = 0
+    m[:, :, w - w // 3:] = 0
+    if b > 1:
+        m[-1] = 0
+    return m
+
+
+def check_bn_sums(got, y, m, what: str) -> float:
+    """Kernel sums against the plain version on the same inputs; returns
+    the max abs error over s1 and s2."""
+    import torch
+
+    from can_tpu_torch.ops import cuda_bn as cb
+
+    yf = y.detach().float()
+    w1, w2, w0 = cb.masked_moment_sums(yf, m)
+    s1, s2, s0 = (t.detach() for t in got)
+    e1, e2 = (s1 - w1).abs(), (s2 - w2).abs()
+    scale1 = torch.sum((yf * m).abs(), dim=(0, 1, 2))
+    scale2 = torch.sum(yf * yf * m, dim=(0, 1, 2))
+    if not bool(torch.isfinite(s1).all() and torch.isfinite(s2).all()):
+        fail(f"bn_moments {what}: non-finite sums")
+    if not bool((e1 <= BN_RTOL * scale1).all() and (e2 <= BN_RTOL * scale2).all()):
+        fail(f"bn_moments {what}: sums off by {float(e1.max()):.3e} / "
+             f"{float(e2.max()):.3e}, over {BN_RTOL} of sum|y m| / sum y^2 m")
+    if float(s0) != float(w0):
+        fail(f"bn_moments {what}: s0 {float(s0)!r} != {float(w0)!r}")
+    return max(float(e1.max()), float(e2.max()))
+
+
+def bn_bound(y, peaks: dict):
+    """Least time for the moment sums on these inputs: y and the mask read
+    once, (2C + 1) f32 written; 4 f32 operations per element of y (y m,
+    +, fma) on CUDA cores (bf16 is widened, so the f32 peak)."""
+    b, h, w, c = y.shape
+    nbytes = y.numel() * y.element_size() + b * h * w * 4 + (2 * c + 1) * 4
+    by_bytes = nbytes / peaks["bytes"] * 1e3
+    by_ops = 4 * y.numel() / peaks["f32"] * 1e3
+    return max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops else "operations"), nbytes
+
+
+def phase_bn_kernels(peaks: dict) -> dict:
+    """The BN moment-sums kernel against its plain version at the
+    training shapes, f32 and bf16; returns the kernels-line numbers
+    (times at (8, 576, 768, 64) f32, the worst error over every check)."""
+    import torch
+
+    from can_tpu_torch.ops import cuda_bn as cb
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    rows, worst = {}, 0.0
+    for shape in BN_SHAPES:
+        b, h, w, c = shape
+        y32 = torch.randn(shape, generator=g, device="cuda") * 2 + 0.5
+        m = _bn_mask(b, h, w, "cuda")
+        for name, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            y = y32.to(dt)
+            got = cb.moment_sums_cuda(y, m)
+            torch.cuda.synchronize()
+            err = check_bn_sums(got, y, m, f"{shape} {name}")
+            again = cb.moment_sums_cuda(y, m)
+            if not all(torch.equal(a, b_) for a, b_ in zip(got, again)):
+                fail(f"bn_moments {shape} {name}: two runs differ")
+            worst = max(worst, err)
+            ms = time_ms(lambda: cb.moment_sums_cuda(y, m))
+            plain_ms = time_ms(lambda: cb.masked_moment_sums(y.float(), m))
+            lib_ms = time_ms(lambda: torch.var_mean(y, dim=(0, 1, 2)))
+            bound, by, nbytes = bn_bound(y, peaks)
+            log(f"[kernel] bn_moments {shape} {name}: max abs err {err:.3e} "
+                f"(sums within {BN_RTOL} of sum|y m|, s0 exact, bitwise "
+                f"repeatable) | kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+                f"torch.var_mean {lib_ms:.3f} ms | bound {bound:.3f} ms "
+                f"({by}: {nbytes / 1e6:.1f} MB) | {nbytes / ms / 1e6:.1f} GB/s")
+            rows[(shape, name)] = {"ms": ms, "plain_ms": plain_ms,
+                                   "library_ms": lib_ms, "bound_ms": bound,
+                                   "bound_by": by}
+            del got, again
+    full = rows[(BN_SHAPES[0], "f32")]
+    return {"max_abs_err": worst, **full}
+
+
+def make_train_data(work: Path):
+    """The synthetic PNG dataset (the port's writer) under ``work``."""
+    from can_tpu_torch.data import make_synthetic_dataset
+
+    root = work / "synth"
+    make_synthetic_dataset(str(root / "train_data"), TRAIN_ITEMS,
+                           sizes=TRAIN_SIZES, seed=SEED)
+    make_synthetic_dataset(str(root / "test_data"), TEST_ITEMS,
+                           sizes=TRAIN_SIZES, seed=SEED + 1)
+    return root
+
+
+def check_schedule(root: Path) -> None:
+    """The steps the CLI will run must carry bucket padding and fill slots."""
+    from can_tpu_torch.data import CrowdDataset, ShardedBatcher
+
+    ds = CrowdDataset(str(root / "train_data" / "images"),
+                      str(root / "train_data" / "ground_truth"))
+    sched = ShardedBatcher(ds, TRAIN_BATCH, seed=SEED,
+                           pad_multiple=TRAIN_PAD).global_schedule(0)[:TRAIN_STEPS]
+    padded = any(ds.snapped_shape(i) != key for key, g in sched for i, _ in g)
+    fill = any(not v for _, g in sched for _, v in g)
+    if not (padded and fill):
+        fail(f"the first {TRAIN_STEPS} training batches carry padding={padded} "
+             f"fill={fill}; the smoke run needs both")
+    log(f"[train] schedule: {len(sched)} steps, buckets "
+        f"{sorted({k for k, _ in sched})}, "
+        f"{sum(not v for _, g in sched for _, v in g)} fill slots")
+
+
+def train_cli(root: Path, work: Path, bf16: bool) -> dict:
+    """The port's train CLI path, one epoch of TRAIN_STEPS steps; returns
+    its summary plus the launch counts of this run."""
+    import math
+
+    from can_tpu_torch.cli import train as cli
+    from can_tpu_torch.ops import cuda_bn as cb
+    from can_tpu_torch.ops import cuda_context as cc
+    from can_tpu_torch.utils.checkpoint import has_checkpoint
+
+    tag = "bf16" if bf16 else "f32"
+    ckpt = work / f"ckpt_{tag}"
+    argv = ["--data_root", str(root), "--syncBN", "--bn-impl", "kernel",
+            "--batch-size", str(TRAIN_BATCH), "--pad-multiple", str(TRAIN_PAD),
+            "--epochs", "1", "--max-steps-per-epoch", str(TRAIN_STEPS),
+            "--lr", "1e-6", "--seed", str(SEED), "--checkpoint-dir", str(ckpt)]
+    args = cli.parse_args(argv + (["--bf16"] if bf16 else []))
+    cb.reset_launches()
+    cc.reset_launches()  # the main path starts here
+    summary = cli.train(args)
+    launches = {"bn": cb.LAUNCHES, "context": cc.LAUNCHES}  # ... and ends here
+    row = summary["epochs"][-1]
+    if summary["steps"] != TRAIN_STEPS:
+        fail(f"train {tag}: {summary['steps']} steps, want {TRAIN_STEPS}")
+    if not (math.isfinite(row["train_loss"]) and math.isfinite(row["mae"])):
+        fail(f"train {tag}: loss {row['train_loss']!r}, MAE {row['mae']!r}")
+    if not has_checkpoint(str(ckpt)):
+        fail(f"train {tag}: no checkpoint under {ckpt}")
+    if launches["bn"] != BN_LAYERS * summary["steps"]:
+        fail(f"train {tag}: bn_moments launched {launches['bn']} times, want "
+             f"{BN_LAYERS} x {summary['steps']} steps")
+    if launches["context"] != summary["steps"] + summary["eval_batches"]:
+        fail(f"train {tag}: context_fused launched {launches['context']} "
+             f"times, want {summary['steps']} steps + "
+             f"{summary['eval_batches']} eval batches")
+    log(f"[train] {tag}: CLI path, {summary['steps']} steps, loss "
+        f"{row['train_loss']:.6g}, eval MAE {row['mae']:.6g} over "
+        f"{summary['eval_batches']} batches, checkpoint in {ckpt.name}; "
+        f"launches bn_moments {launches['bn']} (= {BN_LAYERS} x steps), "
+        f"context_fused {launches['context']} (= steps + eval batches)")
+    return {**summary, "launches": launches}
+
+
+def fixed_batch(root: Path):
+    """The first training batch of the schedule (bucket padding
+    included), on the card."""
+    from can_tpu_torch.data import CrowdDataset, ShardedBatcher
+    from can_tpu_torch.train.steps import batch_to_device
+
+    ds = CrowdDataset(str(root / "train_data" / "images"),
+                      str(root / "train_data" / "ground_truth"))
+    batch = next(ShardedBatcher(ds, TRAIN_BATCH, seed=SEED,
+                                pad_multiple=TRAIN_PAD).epoch(0))
+    return batch_to_device(batch, "cuda")
+
+
+def _state():
+    import torch
+
+    from can_tpu_torch.models import CANNet
+    from can_tpu_torch.train import create_train_state, make_lr_schedule
+
+    model = CANNet(device="cuda", seed=SEED, batch_norm=True)
+    return create_train_state(model.to(memory_format=torch.channels_last),
+                              make_lr_schedule(1e-6))
+
+
+def kernel_vs_onepass_step(batch) -> None:
+    """One f32 step with the kernel (each layer's sums held against the
+    plain version at the layer's real input) against the same step with
+    onepass: loss and new running stats."""
+    import torch
+
+    from can_tpu_torch.ops import bn_moments as bm
+    from can_tpu_torch.ops import cuda_bn as cb
+    from can_tpu_torch.train import make_train_step
+
+    worst, layers = 0.0, []
+
+    def checked(y, m, axes):
+        sums = cb.moment_sums(y, m)
+        layers.append(tuple(y.shape))
+        nonlocal worst
+        worst = max(worst, check_bn_sums(sums, y, m, f"layer {len(layers)} "
+                                         f"{tuple(y.shape)}"))
+        return bm._finish_onepass(*sums, axes)
+
+    ops = {"kernel": bm.BNOps(impl="kernel", masked_moments=checked,
+                              global_moments=bm.global_moments_onepass),
+           "onepass": bm.make_bn_ops("onepass")}
+    out = {}
+    for name, bn_ops in ops.items():
+        state = _state()
+        _, m = make_train_step(bn_ops=bn_ops)(state, batch)
+        stats = torch.cat([b for k, b in state.model.state_dict().items()
+                           if k.endswith(("running_mean", "running_var"))])
+        out[name] = (float(m["loss"]), stats)
+        del state
+    (lk, sk), (lo, so) = out["kernel"], out["onepass"]
+    if len(layers) != BN_LAYERS:
+        fail(f"the kernel step ran {len(layers)} BN layers, want {BN_LAYERS}")
+    loss_rel = abs(lk - lo) / abs(lo)
+    stats_rel = float((sk - so).abs().max() / so.abs().max())
+    if not (loss_rel <= STEP_RTOL and stats_rel <= STEP_RTOL):
+        fail(f"kernel step vs onepass step: loss rel {loss_rel:.3e}, running "
+             f"stats rel {stats_rel:.3e} (tolerance {STEP_RTOL})")
+    log(f"[train] kernel step vs onepass step (f32, fixed batch): loss "
+        f"{lk:.6g} vs {lo:.6g} (rel {loss_rel:.2e}), running stats rel "
+        f"{stats_rel:.2e} (tolerance {STEP_RTOL}); {len(layers)} BN layers' "
+        f"kernel sums match the plain version at their real inputs, worst "
+        f"abs err {worst:.3e}")
+
+
+def step_breakdown(batch, bf16: bool, peaks: dict) -> dict:
+    """Where a training step's time goes: forward, backward and optimizer
+    by CUDA events (median of 3 warm steps), images/s, peak memory, and
+    each kernel's share (its time at the step's shapes x launches)."""
+    import torch
+
+    from can_tpu_torch.ops import bn_moments as bm
+    from can_tpu_torch.ops import cuda_bn as cb
+    from can_tpu_torch.ops import cuda_context as cc
+    from can_tpu_torch.train.steps import backward, forward_loss
+
+    tag = "bf16" if bf16 else "f32"
+    dt = torch.bfloat16 if bf16 else None
+    state = _state()
+    shapes = []
+
+    def recording(y, m, axes):
+        shapes.append((tuple(y.shape), y.dtype))
+        return bm.masked_moments_kernel(y, m, axes)
+
+    ops = bm.BNOps(impl="kernel", masked_moments=recording,
+                   global_moments=bm.global_moments_onepass)
+    splits = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(5):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        ev[0].record()
+        loss, _ = forward_loss(state, batch, compute_dtype=dt, bn_ops=ops)
+        ev[1].record()
+        backward(state, loss)
+        ev[2].record()
+        state.apply_update()
+        ev[3].record()
+        ev[3].synchronize()
+        if i >= 2:
+            splits.append([ev[j].elapsed_time(ev[j + 1]) for j in range(3)])
+    peak = torch.cuda.max_memory_allocated()
+    fwd, bwd, opt = (statistics.median(x[j] for x in splits) for j in range(3))
+    step = fwd + bwd + opt
+    # the kernels at this step's shapes (timing does not depend on values)
+    g = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    bn_ms = 0.0
+    for shape, ydt in shapes[:BN_LAYERS]:
+        y = torch.randn(shape, generator=g, device="cuda").to(ydt)
+        m = torch.ones(shape[:3] + (1,), device="cuda")
+        bn_ms += time_ms(lambda: cb.moment_sums_cuda(y, m), reps=5)
+    b, h, w, _ = batch["image"].shape
+    fdt = torch.bfloat16 if bf16 else torch.float32
+    fv = torch.randn((b, h // 8, w // 8, 512), generator=g, device="cuda").to(fdt)
+    aves = [torch.randn((b, s, s, 512), generator=g, device="cuda").to(fdt)
+            for s in cc.SCALES]
+    ws = [(torch.randn((512, 512), generator=g, device="cuda") / 512 ** 0.5).to(fdt)
+          for _ in cc.SCALES]
+    avew, uh, wmat = cc.pack_inputs(fv, aves, ws, (h // 8, w // 8))
+    ctx_ms = time_ms(lambda: cc.context_tail_cuda(fv, avew, uh, wmat), reps=5)
+    ctx_bound_ms = context_bound(fv, avew, uh, wmat, peaks)[0]
+    bn_bound_ms = sum(bn_bound(torch.empty(s, device="meta", dtype=d), peaks)[0]
+                      for s, d in shapes[:BN_LAYERS])
+    log(f"[train] {tag} step on ({b}, {h}, {w}): {step:.1f} ms = forward "
+        f"{fwd:.1f} + backward {bwd:.1f} + optimizer {opt:.1f} ms (CUDA "
+        f"events, median of 3 warm steps); {b / step * 1e3:.2f} images/s; "
+        f"peak memory {peak / 2 ** 30:.2f} GiB")
+    log(f"[train] {tag} kernel shares of the step: bn_moments {BN_LAYERS} "
+        f"launches {bn_ms:.2f} ms ({100 * bn_ms / step:.1f}%; bound "
+        f"{bn_bound_ms:.2f} ms), context_fused 1 launch {ctx_ms:.2f} ms "
+        f"({100 * ctx_ms / step:.1f}%; bound {ctx_bound_ms:.2f} ms); the "
+        f"context backward is the plain version's recompute")
+    return {"step_ms": step, "bn_ms": bn_ms, "ctx_ms": ctx_ms}
+
+
+def phase_train(work: Path, peaks: dict) -> dict:
+    root = make_train_data(work)
+    check_schedule(root)
+    runs = {tag: train_cli(root, work, tag == "bf16") for tag in ("f32", "bf16")}
+    batch = fixed_batch(root)
+    kernel_vs_onepass_step(batch)
+    for tag in ("f32", "bf16"):
+        step_breakdown(batch, tag == "bf16", peaks)
+    return {"bn": sum(r["launches"]["bn"] for r in runs.values()),
+            "context": sum(r["launches"]["context"] for r in runs.values())}
+
+
 def main() -> int:
     import torch
 
@@ -399,6 +760,7 @@ def main() -> int:
         fail(f"can_tpu_torch resolved to {can_tpu_torch.__file__}, not this "
              f"checkout")
     from can_tpu_torch.models import random_state_dict
+    from can_tpu_torch.ops import cuda_bn as cb
     from can_tpu_torch.ops import cuda_context as cc
 
     t_start = time.perf_counter()
@@ -414,6 +776,7 @@ def main() -> int:
 
     phase_build()
     row = phase_kernels(peaks)
+    bn_row = phase_bn_kernels(peaks)
 
     work = ROOT / "build" / "chip_smoke"
     work.mkdir(parents=True, exist_ok=True)
@@ -422,7 +785,7 @@ def main() -> int:
     # to 0.5 and every count to ~1e-8, where parity would prove nothing
     torch.save({k: torch.from_numpy(v) for k, v in
                 random_state_dict(SEED, he=True).items()}, pth)
-    cc.reset_launches()  # the main path starts here
+    cc.reset_launches()  # the serving path starts here
     runs = {dt: serve_one(pth, dt) for dt in ("f32", "bf16")}
     launches = cc.LAUNCHES  # ... and ends here
     want = sum(r["batches"] for r in runs.values())
@@ -433,23 +796,37 @@ def main() -> int:
         f"(= batches run, warmup included)")
     for dt, run in runs.items():
         breakdown(run, dt, row["ms"] if dt == "f32" else row["bf16_ms"])
-        check_parity(run, dt)
+        check_parity(run, dt)  # ends by releasing the engine's weights
+    del runs
+
+    train_launches = phase_train(work, peaks)  # resets and reads the counts
 
     kernels = [{"name": cc.KERNEL, "route": "cuda",
                 "source": "can_tpu_torch/csrc/context_fused.cu",
                 "replaces": "can_tpu/ops/pallas_context.py:143",
-                "launches": launches, "max_abs_err": row["max_abs_err"],
+                "launches": launches + train_launches["context"],
+                "max_abs_err": row["max_abs_err"],
                 "ms": row["ms"], "plain_ms": row["plain_ms"],
                 "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
-                "library_ms": None}]
+                "library_ms": None},
+               {"name": cb.KERNEL, "route": "cuda",
+                "source": "can_tpu_torch/csrc/bn_moments.cu",
+                "replaces": "can_tpu/ops/pallas_bn.py:104",
+                "launches": train_launches["bn"],
+                "max_abs_err": bn_row["max_abs_err"],
+                "ms": bn_row["ms"], "plain_ms": bn_row["plain_ms"],
+                "bound_ms": bn_row["bound_ms"], "bound_by": bn_row["bound_by"],
+                "library_ms": bn_row["library_ms"]}]
     log(f"[smoke] done in {time.perf_counter() - t_start:.1f}s; kernels timed "
-        f"at (8, 96, 128, 512) f32 (bf16: {row['bf16_ms']:.3f} ms)")
+        f"at context (8, 96, 128, 512) f32 (bf16: {row['bf16_ms']:.3f} ms), "
+        f"bn_moments {BN_SHAPES[0]} f32; launches: context_fused {launches} "
+        f"serving + {train_launches['context']} training, bn_moments "
+        f"{train_launches['bn']} training")
     log(card)  # the card's name and power limit, as nvidia-smi gives them
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0
-
 
 if __name__ == "__main__":
     sys.exit(main())

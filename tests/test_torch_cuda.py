@@ -1,4 +1,4 @@
-"""The context kernel on the card (marker ``cuda``; skipped without a GPU).
+"""The CUDA kernels on the card (marker ``cuda``; skipped without a GPU).
 
 Runs on a machine with an NVIDIA GPU and nvcc, from the repo root
 (``--noconftest``: tests/conftest.py sets up JAX, which that machine
@@ -6,14 +6,18 @@ lacks and these tests do not use):
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q -m cuda
 
-No JAX here: the kernel is held against its plain PyTorch version, at the
-tolerances chip_smoke.py states (f32 rtol/atol 1e-5, bf16 2e-2 / 1e-2).
+No JAX here: each kernel is held against its plain PyTorch version, at the
+tolerances chip_smoke.py states — context: f32 rtol/atol 1e-5, bf16
+2e-2 / 1e-2; BN moment sums: s1 and s2 within 1e-5 of sum|y m| and
+sum y^2 m per channel (only the summation order differs: bf16 is widened
+exactly), s0 exact.
 """
 
 import pytest
 import torch
 
 from can_tpu_torch.models import CANNet, random_state_dict
+from can_tpu_torch.ops import cuda_bn as cb
 from can_tpu_torch.ops import cuda_context as cc
 
 pytestmark = pytest.mark.cuda
@@ -65,10 +69,118 @@ def test_kernel_refuses_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match="C %"):
         cc.context_tail_cuda(fv, avew, uh, wmat)
     (avew, uh, wmat), fv = _inputs((1, 4, 4, 64), torch.float32, cuda)
-    with pytest.raises(RuntimeError, match="forward-only"):
-        cc.context_tail_cuda(fv.requires_grad_(), avew, uh, wmat)
     with pytest.raises(TypeError):
-        cc.context_tail_cuda(fv.detach().half(), avew, uh, wmat.half())
+        cc.context_tail_cuda(fv.half(), avew, uh, wmat.half())
+    with pytest.raises(ValueError, match="uh"):
+        cc.context_tail_cuda(fv, avew, uh[:, :6], wmat)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_context_function_gradients_match_plain_version(cuda, dtype):
+    """``ContextTail``: the kernel forward, the plain version's VJP for
+    fv, avew and wmat (uh gets none)."""
+    (avew, uh, wmat), fv = _inputs((2, 12, 20, 128), dtype, cuda, seed=3)
+    g = torch.randn(fv.shape, generator=torch.Generator(device=cuda).manual_seed(4),
+                    device=cuda).to(dtype)
+
+    def grads(fn):
+        leaves = [t.detach().clone().requires_grad_(i != 2)
+                  for i, t in enumerate((fv, avew, uh, wmat))]
+        out = fn(*leaves)
+        out.backward(g)
+        return out, [leaves[i].grad for i in (0, 1, 3)], leaves[2].grad
+
+    before = cc.LAUNCHES
+    out_k, gk, uh_k = grads(cc.context_tail)
+    assert cc.LAUNCHES == before + 1  # the recompute is the plain version
+    out_p, gp, _ = grads(cc.context_tail_reference)
+    assert uh_k is None
+    rtol, atol = TOL[dtype]
+    torch.testing.assert_close(out_k.float(), out_p.float(), rtol=rtol, atol=atol)
+    for a, b in zip(gk, gp):
+        # the backward IS the plain version's: the same computation on the
+        # same inputs, so only library summation order may differ
+        assert a.dtype == b.dtype
+        torch.testing.assert_close(a.float(), b.float(), rtol=rtol, atol=atol)
+
+
+def _bn_inputs(shape, dtype, device, *, pad=True, seed=0):
+    g = torch.Generator(device=device).manual_seed(seed)
+    b, h, w, c = shape
+    y = (torch.randn(shape, generator=g, device=device) * 2 + 0.5).to(dtype)
+    m = torch.ones((b, h, w, 1), device=device)
+    if pad:  # bucket padding on the right and bottom, and one fill slot
+        m[:, h - h // 4:] = 0
+        m[:, :, w - w // 3:] = 0
+        if b > 1:
+            m[-1] = 0
+    return y, m
+
+
+def _check_sums(got, y, m):
+    yf = y.float()
+    s1, s2, s0 = got
+    w1, w2, w0 = cb.masked_moment_sums(yf, m)
+    scale1 = torch.sum((yf * m).abs(), dim=(0, 1, 2))
+    scale2 = torch.sum(yf * yf * m, dim=(0, 1, 2))
+    assert s1.dtype == s2.dtype == s0.dtype == torch.float32
+    assert bool(((s1 - w1).abs() <= 1e-5 * scale1).all())
+    assert bool(((s2 - w2).abs() <= 1e-5 * scale2).all())
+    assert float(s0) == float(w0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 16, 24, 64), (3, 37, 51, 128),
+                                   (2, 9, 13, 256), (4, 18, 24, 512),
+                                   (1, 1, 1, 64)])
+def test_bn_kernel_matches_plain_version(cuda, shape, dtype):
+    y, m = _bn_inputs(shape, dtype, cuda)
+    before = cb.LAUNCHES
+    got = cb.moment_sums_cuda(y, m)
+    torch.cuda.synchronize()
+    assert cb.LAUNCHES == before + 1
+    _check_sums(got, y, m)
+
+
+def test_bn_kernel_all_zero_mask_gives_exact_zeros(cuda):
+    y, m = _bn_inputs((2, 16, 24, 64), torch.float32, cuda)
+    s1, s2, s0 = cb.moment_sums_cuda(y, torch.zeros_like(m))
+    assert not bool(s1.any()) and not bool(s2.any()) and float(s0) == 0.0
+
+
+def test_bn_kernel_is_deterministic(cuda):
+    y, m = _bn_inputs((8, 72, 96, 512), torch.float32, cuda)
+    a = torch.cat([t.reshape(-1) for t in cb.moment_sums_cuda(y, m)])
+    b = torch.cat([t.reshape(-1) for t in cb.moment_sums_cuda(y, m)])
+    assert torch.equal(a, b)
+
+
+def test_bn_kernel_refuses_what_it_does_not_take(cuda):
+    y, m = _bn_inputs((2, 4, 4, 64), torch.float32, cuda)
+    with pytest.raises(TypeError):
+        cb.moment_sums_cuda(y.half(), m)
+    with pytest.raises(ValueError, match="C %"):
+        cb.moment_sums_cuda(y[..., :62].contiguous(), m)
+    with pytest.raises(ValueError, match="m:"):
+        cb.moment_sums_cuda(y, m[..., 0])
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        cb.moment_sums_cuda(y.cpu(), m.cpu())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bn_function_gradient_is_plain_vjp(cuda, dtype):
+    """dy = g1 m + 2 g2 y m, cast to y's dtype; m gets no gradient."""
+    y, m = _bn_inputs((2, 8, 12, 128), dtype, cuda)
+    y.requires_grad_()
+    s1, s2, s0 = cb.moment_sums(y, m)
+    g1 = torch.linspace(-1, 1, 128, device=cuda)
+    g2 = torch.linspace(0.5, -0.5, 128, device=cuda)
+    (dy,) = torch.autograd.grad((s1 * g1).sum() + (s2 * g2).sum(), (y,))
+    want = ((g1 + 2 * g2 * y.detach().float()) * m).to(dtype)
+    assert dy.dtype == dtype
+    # f32: rounding order of the two terms; bf16: one rounding of that
+    rtol = 1e-6 if dtype == torch.float32 else 2 ** -7
+    torch.testing.assert_close(dy.float(), want.float(), rtol=rtol, atol=1e-6)
 
 
 def _no_gates(fv, aves, weights, hw):
