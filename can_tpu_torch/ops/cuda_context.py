@@ -5,27 +5,46 @@ Replaces the Pallas TPU kernel ``can_tpu/ops/pallas_context.py::_kernel``
 For each scale k in (1, 2, 3, 6)::
 
     sm_k   = upsample(ave_k)                       (row interp of avew_k)
-    gate_k = sigmoid((sm_k - fv) @ W_k)            (input dtype, f32 sums)
+    gate_k = sigmoid((sm_k - fv) @ W_k)
     num   += gate_k * sm_k ;  den += gate_k
     fi     = num / (den + 1e-12)
 
-What bounds it on an H100: the four (pixels x 512) @ (512 x 512) products
-— 2*4*512*512 FLOP per feature pixel, ~206 GFLOP for an 8 x 96 x 128
-feature map against ~400 MB of compulsory f32 traffic (fv read once, fi
-written once), about 500 FLOP per byte: operations bound it.  The kernel
-(``csrc/context_fused.cu``) keeps each 64-pixel x 64-channel tile's
-logits, num and den in registers across all four scales and rebuilds the
-contrast chunks in shared memory, so none of the per-scale (B, H, W, 512)
-intermediates the plain version materialises ever touches device memory;
-its products are f32 FMAs on CUDA cores (tensor cores are later work).
+The kernel (``csrc/context_fused.cu``) computes the same function through
+the linearity of the logits::
+
+    (sm_k - fv) @ W_k = sum_s uh * Q[off_k + s] - fv @ W_k,
+    Q[b, r, w, :]     = avew[b, r, w, :] @ W_k(r)
+
+One wrapper call runs two device launches: Q (avew's shape, f32, an f32
+GEMM in the kernel itself), then ONE GEMM ``fv @ Wcat`` — Wcat the four
+W_k side by side, columns in the order (channel block of 32, scale,
+channel within the block), a permutation of ``wmat`` — whose epilogue
+reads Q and avew at the pixel's 12 rows and folds the gates into num and
+den in registers.  bf16 runs the GEMM on tensor cores (``wgmma``
+m64n128k16, f32 sums; Wcat passed transposed so both operands are
+K-major); f32 on CUDA-core FMAs (no TF32).
+
+What bounds it on an H100: operations — 208.6 GFLOP for an 8 x 96 x 128
+x 512 feature map (the four products and the elementwise work) against
+~400 MB of compulsory f32 traffic; beside them the epilogue needs 24 f32
+values per output (12 rows of Q and of avew), which the kernel stages in
+shared memory once per 8 x 16-pixel tile.
+
+Numerics: in bf16, fv and W are bf16 as given, their products summed in
+f32, and sm @ W is taken in f32 (Q): closer to the all-f32 plain version
+than the TPU kernel, which rounds the contrast to bf16 before its
+product.  ``context_tail_decomposed`` is a plain PyTorch emulation of the
+kernel's arithmetic at its rounding points, for the tests; nothing on the
+main path calls it.
 
 On a CPU tensor the seam runs the plain PyTorch version; on a CUDA tensor
-it launches the kernel or raises — no fallback.  Gradients: on the card
-the kernel runs inside a ``torch.autograd.Function`` (``ContextTail``)
-whose backward recomputes the plain version on the saved inputs and
-returns its VJP for fv, avew and wmat — the JAX custom VJP's
-recompute-in-backward (pallas_context.py:177-191).  The backward is plain
-PyTorch: the JAX package has no backward kernel either.
+it launches the kernel or raises — no fallback.  ``LAUNCHES`` counts one
+per wrapper call (its two device launches together).  Gradients: on the
+card the kernel runs inside a ``torch.autograd.Function``
+(``ContextTail``) whose backward recomputes the plain version on the
+saved inputs and returns its VJP for fv, avew and wmat — the JAX custom
+VJP's recompute-in-backward (pallas_context.py:177-191).  The backward is
+plain PyTorch: the JAX package has no backward kernel either.
 """
 
 from __future__ import annotations
@@ -43,6 +62,7 @@ ROW_OFFSETS = (0, 1, 3, 6)  # each scale's first row in the packed buffers
 N_ROWS = sum(SCALES)
 EPS = 1e-12
 KERNEL = "context_fused"
+WCAT_BLOCK = 32  # channels per Wcat column block (csrc: kDB)
 
 # Kernel launches since the last reset_launches(): proof that a run went
 # through the kernel (the plain version and CPU tensors never count).
@@ -90,24 +110,82 @@ def context_tail_reference(fv: torch.Tensor, avew: torch.Tensor,
     return (num / (den + EPS)).to(fv.dtype)
 
 
+def wcat_from(wmat: torch.Tensor) -> torch.Tensor:
+    """(4, C, C) gate matrices -> Wcat (C, 4C), columns in the order
+    (channel block of ``WCAT_BLOCK``, scale, channel within the block): a
+    permutation, no arithmetic.  Needs C % WCAT_BLOCK == 0."""
+    k, c, _ = wmat.shape
+    return (wmat.reshape(k, c, c // WCAT_BLOCK, WCAT_BLOCK)
+            .permute(1, 2, 0, 3).reshape(c, k * c).contiguous())
+
+
+def wcat_t_from(wmat: torch.Tensor) -> torch.Tensor:
+    """Wcat transposed, (4C, C), in one permutation: the K-major B operand
+    of the bf16 launch."""
+    k, c, _ = wmat.shape
+    return (wmat.reshape(k, c, c // WCAT_BLOCK, WCAT_BLOCK)
+            .permute(2, 0, 3, 1).reshape(k * c, c).contiguous())
+
+
+def q_reference(avew: torch.Tensor, wmat: torch.Tensor) -> torch.Tensor:
+    """Q = avew[:, rows of scale k] @ W_k for each scale, f32, avew's
+    shape: what the kernel's first launch computes."""
+    return torch.cat([
+        torch.matmul(avew[:, off:off + s], wmat[k].float())
+        for k, (off, s) in enumerate(zip(ROW_OFFSETS, SCALES))], 1)
+
+
+def context_tail_decomposed(fv: torch.Tensor, avew: torch.Tensor,
+                            uh: torch.Tensor, wmat: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch emulation of the kernel's arithmetic: Wcat by
+    permutation, Q in f32, the one product fv @ Wcat with fv and Wcat as
+    given (bf16 exact) summed in f32, then the gate epilogue
+    ``sigmoid(sum_s uh Q - acc)`` in f32; one rounding to fv's dtype.
+    For the tests: nothing on the main path calls it."""
+    b, h, w, c = fv.shape
+    wcat = wcat_from(wmat)
+    q = q_reference(avew, wmat)
+    acc = torch.matmul(fv.reshape(-1, c).float(), wcat.float())
+    acc = acc.reshape(b, h, w, c // WCAT_BLOCK, len(SCALES), WCAT_BLOCK)
+    num = torch.zeros((b, h, w, c), dtype=torch.float32, device=fv.device)
+    den = torch.zeros_like(num)
+    for k, (off, s) in enumerate(zip(ROW_OFFSETS, SCALES)):
+        rows = uh[:, off:off + s]
+        qk = torch.einsum("hs,bswc->bhwc", rows, q[:, off:off + s])
+        sm = torch.einsum("hs,bswc->bhwc", rows, avew[:, off:off + s])
+        gate = torch.sigmoid(qk - acc[..., k, :].reshape(b, h, w, c))
+        num = num + gate * sm
+        den = den + gate
+    return (num / (den + EPS)).to(fv.dtype)
+
+
 def load_library() -> ctypes.CDLL:
     lib = load_kernel_library(KERNEL)
     if lib.context_fused_forward.argtypes is None:
         # every pointer and the stream as c_void_p: a default ctypes int
         # would cut a 64-bit address to 32 bits
         lib.context_fused_forward.argtypes = (
-            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
         lib.context_fused_forward.restype = ctypes.c_int
         lib.context_fused_channel_tile.argtypes = []
         lib.context_fused_channel_tile.restype = ctypes.c_int
+        lib.context_fused_wcat_block.argtypes = []
+        lib.context_fused_wcat_block.restype = ctypes.c_int
+        if lib.context_fused_wcat_block() != WCAT_BLOCK:
+            raise RuntimeError(
+                f"csrc/context_fused.cu orders Wcat in blocks of "
+                f"{lib.context_fused_wcat_block()} channels, this wrapper "
+                f"in blocks of {WCAT_BLOCK}")
     return lib
 
 
 def context_tail_cuda(fv: torch.Tensor, avew: torch.Tensor, uh: torch.Tensor,
                       wmat: torch.Tensor) -> torch.Tensor:
-    """Launch ``csrc/context_fused.cu`` on the current stream; same
-    arguments and result as ``context_tail_reference``.  Raises on
-    anything the kernel does not take."""
+    """Launch ``csrc/context_fused.cu`` on the current stream (two device
+    launches: Q, then fv @ Wcat with the gate tail; one count in
+    ``LAUNCHES``); same arguments and result as
+    ``context_tail_reference``.  Raises on anything the kernel does not
+    take."""
     global LAUNCHES
     if not fv.is_cuda:
         raise ValueError(f"context_tail_cuda runs on CUDA tensors, got fv on "
@@ -134,11 +212,14 @@ def context_tail_cuda(fv: torch.Tensor, avew: torch.Tensor, uh: torch.Tensor,
     out = torch.empty_like(fv)
     if out.numel() == 0:
         return out
+    # bf16: wgmma reads both operands K-major, so Wcat goes transposed
+    wcat = wcat_t_from(wmat) if fv.dtype == torch.bfloat16 else wcat_from(wmat)
+    q = torch.empty_like(avew)
     with torch.cuda.device(fv.device):
         stream = torch.cuda.current_stream(fv.device).cuda_stream
         rc = lib.context_fused_forward(
             fv.data_ptr(), avew.data_ptr(), uh.data_ptr(), wmat.data_ptr(),
-            out.data_ptr(), b * h * w, h, w, c,
+            wcat.data_ptr(), q.data_ptr(), out.data_ptr(), b, h, w, c,
             int(fv.dtype == torch.bfloat16), stream)
     if rc != 0:
         raise RuntimeError(f"context_fused kernel launch failed: CUDA error "

@@ -8,16 +8,23 @@ Phases (any failure exits non-zero; nothing is printed as a result then):
 
 1. build    — compile csrc/context_fused.cu and csrc/bn_moments.cu from
               the checkout, one nvcc each, in parallel; ptxas registers
-              and spills;
+              and spills; per kernel function, the count of tensor-core
+              instructions (HMMA/HGMMA) in ``cuobjdump -sass`` of the
+              built library (the bf16 context GEMM must have some);
 2. kernels  — each kernel against its plain PyTorch version on the card:
               the context kernel at the full feature map of the largest
-              serving bucket (8, 96, 128, 512) and a ragged (2, 47, 61,
-              512); the BN moment-sums kernel at the largest training
+              serving bucket (8, 96, 128, 512), the training map (8, 72,
+              96, 512) and a ragged (2, 47, 61, 512), timed beside one
+              cuBLAS ``fv @ Wcat`` in the working dtype (``products_ms``:
+              the yardstick for its products alone, never called by the
+              port); the BN moment-sums kernel at the largest training
               layer (8, 576, 768, 64), the training feature map (8, 72,
               96, 512) and a ragged (3, 37, 51, 128) with bucket padding
               and a fill slot in the mask; f32 and bf16; warm CUDA-event
-              medians of kernel, plain version and the nearest library
-              call (``torch.var_mean``, unmasked, for the BN sums);
+              medians of single calls of kernel, plain version and the
+              nearest library call (``torch.var_mean``, unmasked, for the
+              BN sums); every device kernel of one context call (the
+              Wcat permutation, Q, the main launch) by ``torch.profiler``;
 3. serving  — a reference-layout .pth of seeded He-scaled normal weights
               (``random_state_dict(he=True)``: gates that vary, counts of
               order one and up) is served by the port's CLI path
@@ -128,6 +135,48 @@ def time_ms(fn, reps: int = 10) -> float:
     return statistics.median(times)
 
 
+def sass_mma_counts(so: str) -> dict:
+    """Tensor-core instructions (HMMA, HGMMA) per kernel function in the
+    SASS of a built library, by ``cuobjdump -sass`` from the toolkit that
+    built it; fails when cuobjdump is missing."""
+    import re
+
+    from can_tpu_torch.ops import _build
+
+    tool = Path(_build.find_nvcc()).parent / "cuobjdump"
+    if not tool.is_file():
+        fail(f"cuobjdump not found next to nvcc ({tool})")
+    proc = subprocess.run([str(tool), "-sass", so], capture_output=True,
+                          text=True, timeout=300)
+    if proc.returncode != 0:
+        fail(f"cuobjdump -sass {so} failed: {proc.stderr.strip()[-2000:]}")
+    counts, fn = {}, None
+    for line in proc.stdout.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :", 1)[1].strip()
+            counts[fn] = 0
+        elif fn is not None and re.search(r"\bH(G)?MMA\b", line):
+            counts[fn] += 1
+    if not counts:
+        fail(f"cuobjdump -sass {so} listed no kernel function")
+    return counts
+
+
+def _readable(name: str) -> str:
+    """``context_q_kernel<bf16>`` from a kernel name, mangled (cuobjdump)
+    or demangled (the profiler)."""
+    import re
+
+    m = (re.search(r"(?<=\d)((?:context|bn)_[a-z0-9_]*[a-z])", name)
+         or re.search(r"((?:context|bn)_[a-z0-9_]*[a-z])(?=[<(])", name))
+    base = m.group(1) if m else name
+    if re.search(r"[a-z](I13__nv_bfloat16E|INS_4Bf16E|<__nv_bfloat16>|<[^>]*Bf16>)", name):
+        base += "<bf16>"
+    elif re.search(r"[a-z](IfE|<float>)", name):
+        base += "<f32>"
+    return base
+
+
 def phase_build():
     from can_tpu_torch.ops import _build, cuda_bn, cuda_context
 
@@ -141,6 +190,14 @@ def phase_build():
         for line in info["ptxas"].splitlines():
             if "registers" in line or "spill" in line:
                 log(f"[build]   ptxas: {line.strip()}")
+        counts = sass_mma_counts(info["path"])
+        for fn, n in sorted(counts.items()):
+            log(f"[build]   sass: {_readable(fn)}: {n} HMMA/HGMMA")
+        if name == cuda_context.KERNEL:
+            tc = [n for fn, n in counts.items() if "context_gemm_bf16_kernel" in fn]
+            if not tc or tc[0] == 0:
+                fail(f"the bf16 context GEMM has no tensor-core instruction in "
+                     f"its SASS ({counts})")
 
 
 def context_bound(fv, avew, uh, wmat, peaks: dict):
@@ -164,10 +221,44 @@ def context_bound(fv, avew, uh, wmat, peaks: dict):
             flops, nbytes)
 
 
+CONTEXT_SHAPES =((8, 96, 128, 512), (8, 72, 96, 512), (2, 47, 61, 512))
+
+
+def launch_split(fn, reps: int = 5) -> str:
+    """Device time per call of every device kernel that ``fn`` runs, over
+    ``reps`` warm calls, by torch.profiler (CUPTI), with their sum: for a
+    context call the Wcat permutation copy, the Q launch and the main
+    launch."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    parts, total = [], 0.0
+    for ev in prof.key_averages():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue  # host-side operators: their device time is their kernels'
+        t = getattr(ev, "device_time_total", None)
+        if t is None:
+            t = getattr(ev, "cuda_time_total", 0)
+        if t > 0:
+            ms = t / reps / 1e3
+            total += ms
+            parts.append(f"{_readable(ev.key)[:60]} {ms:.3f} ms")
+    if not parts:
+        return "the profiler saw no device time"
+    return f"{', '.join(sorted(parts))}; sum {total:.3f} ms"
+
+
 def phase_kernels(peaks: dict) -> dict:
-    """Kernel vs plain version at both shapes and dtypes; returns the
-    kernels-line numbers (times at the full-size shape in f32, the worst
-    error over every check)."""
+    """Kernel vs plain version at every shape and dtype, beside one cuBLAS
+    product ``fv @ Wcat`` (products_ms); returns the kernels-line numbers
+    (times at the full-size shape in f32, the worst error over every
+    check)."""
     import torch
 
     from can_tpu_torch.ops import cuda_context as cc
@@ -175,7 +266,7 @@ def phase_kernels(peaks: dict) -> dict:
     g = torch.Generator(device="cuda").manual_seed(SEED)
     rows = {}
     worst = 0.0
-    for shape in ((8, 96, 128, 512), (2, 47, 61, 512)):
+    for shape in CONTEXT_SHAPES:
         b, h, w, c = shape
         fv32 = torch.randn(shape, generator=g, device="cuda")
         aves32 = [torch.randn((b, s, s, c), generator=g, device="cuda")
@@ -202,20 +293,30 @@ def phase_kernels(peaks: dict) -> dict:
             worst = max(worst, max_abs)
             ms = time_ms(lambda: cc.context_tail_cuda(fv, avew, uh, wmat))
             plain_ms = time_ms(lambda: cc.context_tail_reference(fv, avew, uh, wmat))
+            # the products alone in cuBLAS: the yardstick, not the port's path
+            fv2d, wcat = fv.reshape(-1, c), cc.wcat_from(wmat)  # (C, 4C)
+            products_ms = time_ms(lambda: torch.matmul(fv2d, wcat))
             bound, by, flops, nbytes = context_bound(fv, avew, uh, wmat, peaks)
             log(f"[kernel] context_fused {shape} {name}: max abs err "
                 f"{max_abs:.3e} max rel err "
                 f"{max_abs / max(float(want.float().abs().max()), 1e-30):.3e} "
                 f"(rtol {rtol}, atol {atol}) | kernel {ms:.3f} ms, plain "
-                f"{plain_ms:.3f} ms | bound {bound:.3f} ms ({by}: "
-                f"{flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB) | "
+                f"{plain_ms:.3f} ms, products_ms (cuBLAS fv @ Wcat) "
+                f"{products_ms:.3f} ms | bound {bound:.3f} ms ({by}: "
+                f"{flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB), "
+                f"{100 * bound / ms:.1f}% of bound | "
                 f"{flops / ms / 1e9:.2f} TFLOP/s")
+            if shape == CONTEXT_SHAPES[0]:
+                log(f"[kernel] context_fused {shape} {name} launches "
+                    f"(torch.profiler, per call): "
+                    f"{launch_split(lambda: cc.context_tail_cuda(fv, avew, uh, wmat))}")
             rows[(shape, name)] = {"ms": ms, "plain_ms": plain_ms,
+                                   "products_ms": products_ms,
                                    "bound_ms": bound, "bound_by": by}
-            del got, want, diff, limit
-    full = rows[((8, 96, 128, 512), "f32")]
+            del got, want, diff, limit, wcat
+    full = rows[(CONTEXT_SHAPES[0], "f32")]
     return {"max_abs_err": worst, **full,
-            "bf16_ms": rows[((8, 96, 128, 512), "bf16")]["ms"]}
+            "bf16_ms": rows[(CONTEXT_SHAPES[0], "bf16")]["ms"]}
 
 
 # BURST concurrent POSTs of one .npy body (?raw=1), stdlib only; prints
@@ -808,7 +909,7 @@ def main() -> int:
                 "max_abs_err": row["max_abs_err"],
                 "ms": row["ms"], "plain_ms": row["plain_ms"],
                 "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
-                "library_ms": None},
+                "library_ms": None, "products_ms": row["products_ms"]},
                {"name": cb.KERNEL, "route": "cuda",
                 "source": "can_tpu_torch/csrc/bn_moments.cu",
                 "replaces": "can_tpu/ops/pallas_bn.py:104",

@@ -44,7 +44,11 @@ def _inputs(shape, dtype, device, seed=0):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(1, 8, 20, 512), (2, 47, 61, 512),
-                                   (3, 5, 7, 128), (1, 1, 1, 64)])
+                                   (3, 5, 7, 128), (1, 1, 1, 64),
+                                   # pixel counts off the 128-pixel tile and
+                                   # off its 8 x 16 image tiling
+                                   (1, 9, 17, 64), (3, 13, 31, 256),
+                                   (8, 72, 96, 512)])
 def test_kernel_matches_plain_version(cuda, shape, dtype):
     (avew, uh, wmat), fv = _inputs(shape, dtype, cuda)
     before = cc.LAUNCHES
@@ -57,11 +61,37 @@ def test_kernel_matches_plain_version(cuda, shape, dtype):
     torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=atol)
 
 
-def test_kernel_is_deterministic(cuda):
-    (avew, uh, wmat), fv = _inputs((2, 24, 40, 512), torch.float32, cuda)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_is_deterministic(cuda, dtype):
+    (avew, uh, wmat), fv = _inputs((2, 24, 40, 512), dtype, cuda)
     a = cc.context_tail_cuda(fv, avew, uh, wmat)
     b = cc.context_tail_cuda(fv, avew, uh, wmat)
     assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_runs_past_the_old_pixel_cap(cuda, dtype):
+    """4.3 M pixels: more than the 65535 x 64 = 4.19 M that riding pixel
+    tiles on grid.y allowed."""
+    shape = (2, 1024, 2100, 64)
+    assert shape[0] * shape[1] * shape[2] > 65535 * 64
+    (avew, uh, wmat), fv = _inputs(shape, dtype, cuda, seed=5)
+    got = cc.context_tail_cuda(fv, avew, uh, wmat)
+    torch.cuda.synchronize()
+    want = cc.context_tail_reference(fv, avew, uh, wmat)
+    rtol, atol = TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=atol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_matches_its_decomposition(cuda, dtype):
+    """The kernel computes what ``context_tail_decomposed`` emulates: in
+    f32 the two differ only in summation order."""
+    (avew, uh, wmat), fv = _inputs((2, 16, 40, 512), dtype, cuda, seed=6)
+    got = cc.context_tail_cuda(fv, avew, uh, wmat)
+    want = cc.context_tail_decomposed(fv, avew, uh, wmat)
+    rtol, atol = TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=atol)
 
 
 def test_kernel_refuses_what_it_does_not_take(cuda):
