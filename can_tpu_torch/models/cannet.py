@@ -160,7 +160,8 @@ class CANNet(nn.Module):
             elif isinstance(layer, nn.MaxPool2d):
                 x = max_pool2d(x)
                 if bn_mask is not None:
-                    bn_mask = bn_mask[:, ::2, ::2, :]
+                    # contiguous once here, not in each BN layer's kernel call
+                    bn_mask = bn_mask[:, ::2, ::2, :].contiguous()
         return x, bn_mask
 
     @staticmethod

@@ -17,14 +17,22 @@ Phases (any failure exits non-zero; nothing is printed as a result then):
               96, 512) and a ragged (2, 47, 61, 512), timed beside one
               cuBLAS ``fv @ Wcat`` in the working dtype (``products_ms``:
               the yardstick for its products alone, never called by the
-              port); the BN moment-sums kernel at the largest training
-              layer (8, 576, 768, 64), the training feature map (8, 72,
-              96, 512) and a ragged (3, 37, 51, 128) with bucket padding
-              and a fill slot in the mask; f32 and bf16; warm CUDA-event
-              medians of single calls of kernel, plain version and the
-              nearest library call (``torch.var_mean``, unmasked, for the
-              BN sums); every device kernel of one context call (the
-              Wcat permutation, Q, the main launch) by ``torch.profiler``;
+              port); every device kernel of one context call (the Wcat
+              permutation, Q, the main launch) by ``torch.profiler``.
+              Then the BN kernels at every distinct BN shape of the (8,
+              576, 768) training step, with bucket padding and a fill slot
+              in the mask, f32 and bf16: the forward (one device kernel
+              per call, sums against the plain version, bitwise
+              repeatable) and the backward ``MomentSums.backward`` (the
+              backward kernel against its plain twin, bitwise
+              repeatable), each with its device time per call
+              (``torch.profiler``), its single-call CUDA-event time, its
+              bound, the share of the bound reached and its host time per
+              call; at the largest layer also the forward's plain version
+              and ``torch.var_mean`` (unmasked, the nearest library
+              call), the backward's plain twin and the plain recompute it
+              replaced; and both kernels checked at a ragged (3, 37, 51,
+              128), whose pixel count is not a multiple of 4;
 3. serving  — a reference-layout .pth of seeded He-scaled normal weights
               (``random_state_dict(he=True)``: gates that vary, counts of
               order one and up) is served by the port's CLI path
@@ -44,16 +52,30 @@ Phases (any failure exits non-zero; nothing is printed as a result then):
               CLI path (``cli.train.train``: --syncBN --bn-impl kernel
               --batch-size 8 --pad-multiple 64, one epoch of 3 steps with
               bucket padding and fill slots, eval, checkpoint) in f32 and
-              in bf16; the BN kernel must launch 16 times per step and the
-              context kernel once per step and per eval batch.  Then one
-              step on a fixed batch with the kernel against the same step
-              with ``onepass`` (loss and running stats), every BN layer's
-              kernel sums held against the plain version at the layer's
-              real input, and the step's time split (forward, backward,
-              optimizer) with each kernel's share;
+              in bf16; the BN forward and backward kernels must each
+              launch 16 times per step and the context kernel once per
+              step and per eval batch.  Then one step on a fixed batch
+              with the kernel against the same step with ``onepass`` (loss,
+              running stats and the update of all weights), every BN
+              layer's kernel sums held against the plain version at the
+              layer's real input, the step's time split (forward,
+              backward, optimizer), and a ``torch.profiler`` device-time
+              profile of one more warm step (the top 15 kernels; the BN
+              forward, BN backward and context kernels' sums; the device's
+              idle share of that step: the share of the span from its first
+              to its last device activity in which no kernel, copy or
+              memset ran);
 5. report   — the card's name and power limit (nvidia-smi's own line), a
               ``kernels`` JSON line,
               and last the result line ``{"ok": true, "device": {...}}``.
+
+``python3 chip_smoke.py --measure-only`` runs the build and the timings of
+phases 2 and 4 that reach the kernels only through interfaces older
+versions of the port share (``moment_sums_cuda``, ``MomentSums``, the
+train step) — the BN table (``bn_time``) and the step split and profile
+(``step_breakdown``) — and no check, no serving, no result line: copied
+into an older checkout, it times that checkout's kernels by this
+script's methods, in the same chip call as this one.
 
 Imports torch, numpy, the standard library and ``can_tpu_torch`` — no JAX.
 """
@@ -87,7 +109,26 @@ GATE_EFFECT = 5
 # sum|y m| and sum y^2 m per channel (f32 summation order only: bf16 is
 # widened exactly on both sides); s0 exact
 BN_RTOL = 1e-5
-BN_SHAPES = ((8, 576, 768, 64), (8, 72, 96, 512), (3, 37, 51, 128))
+# every distinct BN input of a training step at (8, 576, 768), with the
+# number of the step's 16 BN layers that take it
+BN_STEP_SHAPES = (((8, 576, 768, 64), 2), ((8, 288, 384, 128), 2),
+                  ((8, 144, 192, 256), 3), ((8, 72, 96, 512), 6),
+                  ((8, 72, 96, 256), 1), ((8, 72, 96, 128), 1),
+                  ((8, 72, 96, 64), 1))
+# a BN input off the step's shapes: 5661 pixels, not a multiple of 4, so
+# the forward's ring copies m's last pixel by hand
+BN_RAGGED_SHAPE = (3, 37, 51, 128)
+# BN backward kernel vs its plain twin m (g1 + 2 g2 y): f32 only rounding
+# order may differ; bf16 one rounding of the result to bf16
+BWD_RTOL = {"f32": 1e-6, "bf16": 2 ** -7}
+# one step with the kernel vs with onepass: the update (new - old) of all
+# weights together, in relative L2 norm.  The two differ in f32 rounding
+# only (summation order, the gradient's formula); a wrong BN gradient
+# moves the update by O(1).  One parameter's own update can differ far
+# more where its gradient is a small sum of cancelling terms (a BN
+# scale): the per-parameter worst is reported beside the same figure for
+# twopass vs onepass, the f32 noise of two correct plain steps
+UPDATE_RTOL = 1e-2
 # training phase: the dataset, the CLI's batch and the kernel-vs-onepass step
 TRAIN_SIZES = ((576, 768), (560, 744), (480, 640))
 TRAIN_ITEMS, TEST_ITEMS = 20, 8
@@ -135,6 +176,21 @@ def time_ms(fn, reps: int = 10) -> float:
     return statistics.median(times)
 
 
+def host_us(fn, reps: int = 50) -> float:
+    """Host time per call, in microseconds, of ``reps`` calls launched back
+    to back (the launches queue; one synchronize at the end, outside)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t = (time.perf_counter() - t0) / reps * 1e6
+    torch.cuda.synchronize()
+    return t
+
+
 def sass_mma_counts(so: str) -> dict:
     """Tensor-core instructions (HMMA, HGMMA) per kernel function in the
     SASS of a built library, by ``cuobjdump -sass`` from the toolkit that
@@ -172,7 +228,7 @@ def _readable(name: str) -> str:
     base = m.group(1) if m else name
     if re.search(r"[a-z](I13__nv_bfloat16E|INS_4Bf16E|<__nv_bfloat16>|<[^>]*Bf16>)", name):
         base += "<bf16>"
-    elif re.search(r"[a-z](IfE|<float>)", name):
+    elif re.search(r"[a-z](If[EL]|<float[,>])", name):
         base += "<f32>"
     return base
 
@@ -224,34 +280,55 @@ def context_bound(fv, avew, uh, wmat, peaks: dict):
 CONTEXT_SHAPES =((8, 96, 128, 512), (8, 72, 96, 512), (2, 47, 61, 512))
 
 
-def launch_split(fn, reps: int = 5) -> str:
-    """Device time per call of every device kernel that ``fn`` runs, over
-    ``reps`` warm calls, by torch.profiler (CUPTI), with their sum: for a
-    context call the Wcat permutation copy, the Q launch and the main
-    launch."""
+def _device_us(ev) -> float:
+    """An event's device time in microseconds (the attribute's name
+    changed across PyTorch versions)."""
+    t = getattr(ev, "device_time_total", None)
+    return getattr(ev, "cuda_time_total", 0) if t is None else t
+
+
+def device_kernels(fn, reps: int = 5, attempts: int = 3):
+    """Every device kernel that ``fn`` runs, over ``reps`` warm calls, by
+    torch.profiler (CUPTI): ``[(name, ms per call, launches per call)]``
+    and the summed ms per call.  On the card a profile now and then loses
+    a kernel's record (4 of 5 launches seen) or all of them: a kernel's ms
+    per call is its mean time per recorded launch times its launches per
+    call (recorded / reps, rounded), and a profile that recorded nothing
+    is taken again, up to ``attempts`` profiles; then it fails."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    parts, total = [], 0.0
-    for ev in prof.key_averages():
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
-            continue  # host-side operators: their device time is their kernels'
-        t = getattr(ev, "device_time_total", None)
-        if t is None:
-            t = getattr(ev, "cuda_time_total", 0)
-        if t > 0:
-            ms = t / reps / 1e3
-            total += ms
-            parts.append(f"{_readable(ev.key)[:60]} {ms:.3f} ms")
-    if not parts:
+    for attempt in range(attempts):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        rows = []
+        for ev in prof.key_averages():
+            if ev.device_type != torch.autograd.DeviceType.CUDA:
+                continue  # host-side operators: their device time is their kernels'
+            if _device_us(ev) > 0:
+                per_call = max(1, round(ev.count / reps))
+                rows.append((_readable(ev.key)[:60],
+                             _device_us(ev) / ev.count * per_call / 1e3, per_call))
+        if rows:
+            return sorted(rows), sum(r[1] for r in rows)
+        log(f"[profile] profile {attempt + 1} of {attempts} recorded no device "
+            f"time; taking it again")
+    fail(f"torch.profiler recorded no device time in {attempts} profiles")
+
+
+def launch_split(fn, reps: int = 5) -> str:
+    """Device time per call of every device kernel that ``fn`` runs, with
+    their sum: for a context call the Wcat permutation copy, the Q launch
+    and the main launch."""
+    rows, total = device_kernels(fn, reps)
+    if not rows:
         return "the profiler saw no device time"
-    return f"{', '.join(sorted(parts))}; sum {total:.3f} ms"
+    return (f"{', '.join(f'{n} {ms:.3f} ms' for n, ms, _ in rows)}; "
+            f"sum {total:.3f} ms")
 
 
 def phase_kernels(peaks: dict) -> dict:
@@ -581,44 +658,181 @@ def bn_bound(y, peaks: dict):
     return max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops else "operations"), nbytes
 
 
-def phase_bn_kernels(peaks: dict) -> dict:
-    """The BN moment-sums kernel against its plain version at the
-    training shapes, f32 and bf16; returns the kernels-line numbers
-    (times at (8, 576, 768, 64) f32, the worst error over every check)."""
+class _Saved:
+    """What ``MomentSums.backward`` reads of its autograd context."""
+
+    def __init__(self, *tensors):
+        self.saved_tensors = tensors
+
+
+def bn_backward_bound(y, peaks: dict):
+    """Least time for the BN backward dy = m (g1 + 2 g2 y) on these
+    inputs: y and the mask read once, dy (y's shape and dtype) written
+    once; 3 f32 operations per element (2 g2 is per channel) on CUDA
+    cores."""
+    b, h, w, c = y.shape
+    nbytes = 2 * y.numel() * y.element_size() + b * h * w * 4 + 2 * c * 4
+    by_bytes = nbytes / peaks["bytes"] * 1e3
+    by_ops = 3 * y.numel() / peaks["f32"] * 1e3
+    return max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops else "operations"), nbytes
+
+
+def check_bn_backward(got, want, y, name: str, what: str) -> float:
+    """The backward kernel's dy against its plain twin: f32 within rtol
+    1e-6, bf16 within one bf16 rounding; returns the max abs error."""
+    import torch
+
+    if got.dtype != y.dtype or got.shape != y.shape:
+        fail(f"bn_moments_backward {what}: dy {got.dtype} {tuple(got.shape)}")
+    g, w = got.float(), want.float()
+    if not bool(torch.isfinite(g).all()):
+        fail(f"bn_moments_backward {what}: non-finite dy")
+    err = (g - w).abs()
+    rtol = BWD_RTOL[name]
+    if not bool((err <= rtol * w.abs() + 1e-30).all()):
+        fail(f"bn_moments_backward {what}: dy off by {float(err.max()):.3e}, "
+             f"over rtol {rtol}")
+    return float(err.max())
+
+
+def check_bn_kernels(y, m, g1, g2, name: str, what: str):
+    """Both BN kernels against their plain versions on one input: the
+    forward's sums (s0 exact) and the backward's dy, each bitwise equal on
+    a second run; returns (forward, backward) max abs errors."""
     import torch
 
     from can_tpu_torch.ops import cuda_bn as cb
 
-    g = torch.Generator(device="cuda").manual_seed(SEED + 7)
-    rows, worst = {}, 0.0
-    for shape in BN_SHAPES:
+    sums = cb.moment_sums_cuda(y, m)
+    torch.cuda.synchronize()
+    err_f = check_bn_sums(sums, y, m, what)
+    if not all(torch.equal(a, b) for a, b in zip(sums, cb.moment_sums_cuda(y, m))):
+        fail(f"bn_moments {what}: two runs differ")
+    dy = cb.moment_sums_backward_cuda(y, m, g1, g2)
+    torch.cuda.synchronize()
+    want = cb.masked_moment_sums_backward(y, m, g1, g2)
+    err_b = check_bn_backward(dy, want, y, name, what)
+    if not torch.equal(dy, cb.moment_sums_backward_cuda(y, m, g1, g2)):
+        fail(f"bn_moments_backward {what}: two runs differ")
+    return err_f, err_b
+
+
+def bn_cases():
+    """Seeded inputs at every BN shape, f32 and bf16: ``(shape, count,
+    dtype name, y, m, g1, g2)``, ``count`` the step's BN layers at that
+    shape (0 for BN_RAGGED_SHAPE, last, which is not one of them)."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    for shape, count in BN_STEP_SHAPES + ((BN_RAGGED_SHAPE, 0),):
         b, h, w, c = shape
         y32 = torch.randn(shape, generator=g, device="cuda") * 2 + 0.5
         m = _bn_mask(b, h, w, "cuda")
+        g1 = torch.randn((c,), generator=g, device="cuda")
+        g2 = torch.randn((c,), generator=g, device="cuda")
         for name, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
-            y = y32.to(dt)
-            got = cb.moment_sums_cuda(y, m)
-            torch.cuda.synchronize()
-            err = check_bn_sums(got, y, m, f"{shape} {name}")
-            again = cb.moment_sums_cuda(y, m)
-            if not all(torch.equal(a, b_) for a, b_ in zip(got, again)):
-                fail(f"bn_moments {shape} {name}: two runs differ")
-            worst = max(worst, err)
-            ms = time_ms(lambda: cb.moment_sums_cuda(y, m))
-            plain_ms = time_ms(lambda: cb.masked_moment_sums(y.float(), m))
-            lib_ms = time_ms(lambda: torch.var_mean(y, dim=(0, 1, 2)))
-            bound, by, nbytes = bn_bound(y, peaks)
-            log(f"[kernel] bn_moments {shape} {name}: max abs err {err:.3e} "
-                f"(sums within {BN_RTOL} of sum|y m|, s0 exact, bitwise "
-                f"repeatable) | kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-                f"torch.var_mean {lib_ms:.3f} ms | bound {bound:.3f} ms "
-                f"({by}: {nbytes / 1e6:.1f} MB) | {nbytes / ms / 1e6:.1f} GB/s")
-            rows[(shape, name)] = {"ms": ms, "plain_ms": plain_ms,
-                                   "library_ms": lib_ms, "bound_ms": bound,
-                                   "bound_by": by}
-            del got, again
-    full = rows[(BN_SHAPES[0], "f32")]
-    return {"max_abs_err": worst, **full}
+            yield shape, count, name, y32.to(dt), m, g1, g2
+
+
+def bn_time(y, m, g1, g2, peaks: dict, what: str) -> dict:
+    """The BN forward (``moment_sums_cuda``) and backward
+    (``MomentSums.backward``) on one input: device time per call by
+    torch.profiler with the device kernels of a call, single-call time by
+    CUDA events and host time per call, beside their bounds."""
+    from can_tpu_torch.ops import cuda_bn as cb
+
+    def fwd():
+        return cb.moment_sums_cuda(y, m)
+
+    def bwd():
+        return cb.MomentSums.backward(_Saved(y, m), g1, g2, None)[0]
+
+    fk, f_dev = device_kernels(fwd)
+    f_call = time_ms(fwd)
+    bk, b_dev = device_kernels(bwd)
+    b_call = time_ms(bwd)
+    f_host, b_host = host_us(fwd), host_us(bwd)
+    f_bound, f_by, f_bytes = bn_bound(y, peaks)
+    b_bound, b_by, b_bytes = bn_backward_bound(y, peaks)
+    log(f"[bn] {what} forward: device {f_dev:.4f} ms "
+        f"({', '.join(f'{n} x{k:g}' for n, _, k in fk)}), call "
+        f"{f_call:.4f} ms, bound {f_bound:.4f} ms ({f_by}: "
+        f"{f_bytes / 1e6:.1f} MB), {100 * f_bound / f_dev:.1f}% of "
+        f"bound (device), {100 * f_bound / f_call:.1f}% (call); host "
+        f"{f_host:.1f} us/call")
+    log(f"[bn] {what} backward: device {b_dev:.4f} ms "
+        f"({len(bk)} kernels, {sum(k for _, _, k in bk):g} launches: "
+        f"{', '.join(f'{n} {ms:.4f}' for n, ms, _ in bk)[:400]}), call "
+        f"{b_call:.4f} ms, bound {b_bound:.4f} ms ({b_by}: y + m + dy "
+        f"{b_bytes / 1e6:.1f} MB), {100 * b_bound / b_dev:.1f}% of "
+        f"bound (device), {100 * b_bound / b_call:.1f}% (call); host "
+        f"{b_host:.1f} us/call")
+    return {"fk": fk, "f_dev": f_dev, "f_call": f_call, "f_bound": f_bound,
+            "f_by": f_by, "b_dev": b_dev, "b_call": b_call, "b_bound": b_bound,
+            "b_by": b_by}
+
+
+def bn_totals(rows: dict) -> None:
+    """The per-shape times summed over the step's BN layers."""
+    for name in ("f32", "bf16"):
+        tot = {k: sum(r[k] * count for (_, count, n), r in rows.items() if n == name)
+               for k in ("f_dev", "f_call", "f_bound", "b_dev", "b_call", "b_bound")}
+        log(f"[bn] {name} step total over its {BN_LAYERS} BN layers: forward "
+            f"device {tot['f_dev']:.3f} ms, call {tot['f_call']:.3f} ms, bound "
+            f"{tot['f_bound']:.3f} ms ({100 * tot['f_bound'] / tot['f_dev']:.1f}% "
+            f"of bound, device); backward device {tot['b_dev']:.3f} ms, call "
+            f"{tot['b_call']:.3f} ms, bound {tot['b_bound']:.3f} ms "
+            f"({100 * tot['b_bound'] / tot['b_dev']:.1f}% of bound, device)")
+
+
+def phase_bn(peaks: dict) -> dict:
+    """The BN kernels at every distinct BN shape of the (8, 576, 768)
+    step, f32 and bf16: held against their plain versions (one device
+    kernel per forward call), then timed (``bn_time``); and checked at
+    BN_RAGGED_SHAPE.  Returns the kernels-line numbers of the forward and
+    the backward (times at the largest layer, f32; the worst error over
+    every shape)."""
+    import torch
+
+    from can_tpu_torch.ops import cuda_bn as cb
+
+    rows, worst, worst_f = {}, 0.0, 0.0
+    for shape, count, name, y, m, g1, g2 in bn_cases():
+        what = f"{shape} {name}"
+        err_f, err_b = check_bn_kernels(y, m, g1, g2, name, what)
+        worst_f, worst = max(worst_f, err_f), max(worst, err_b)
+        if not count:
+            log(f"[bn] {what} (ragged, {y.numel() // shape[-1]} pixels): "
+                f"forward sums and backward dy match their plain versions, max "
+                f"abs err {err_f:.3e} / {err_b:.3e}, bitwise repeatable")
+            continue
+        row = rows[(shape, count, name)] = bn_time(y, m, g1, g2, peaks, what)
+        if len(row["fk"]) != 1 or row["fk"][0][2] != 1:
+            fail(f"bn_moments {what}: one forward call ran {row['fk']} on the "
+                 f"device, want exactly one kernel launch")
+        if shape == BN_STEP_SHAPES[0][0]:
+            # the yardsticks at the largest layer: the forward's plain
+            # version and the nearest library call (unmasked); the
+            # backward's plain twin and the recompute it replaced
+            row["f_plain"] = time_ms(lambda: cb.masked_moment_sums(y.float(), m))
+            row["f_library"] = time_ms(lambda: torch.var_mean(y, dim=(0, 1, 2)))
+            row["b_plain"] = time_ms(
+                lambda: cb.masked_moment_sums_backward(y, m, g1, g2))
+            row["b_recompute"] = time_ms(
+                lambda: cb.moment_sums_vjp_plain(y, m, g1, g2))
+            log(f"[bn] {what} yardsticks (single calls): forward plain "
+                f"version {row['f_plain']:.4f} ms, torch.var_mean "
+                f"(unmasked) {row['f_library']:.4f} ms | backward: plain "
+                f"twin {row['b_plain']:.4f} ms, the plain recompute it "
+                f"replaced {row['b_recompute']:.4f} ms")
+    bn_totals(rows)
+    first = rows[(BN_STEP_SHAPES[0][0], BN_STEP_SHAPES[0][1], "f32")]
+    return {"forward": {"max_abs_err": worst_f, "ms": first["f_call"],
+                        "plain_ms": first["f_plain"], "bound_ms": first["f_bound"],
+                        "bound_by": first["f_by"], "library_ms": first["f_library"]},
+            "backward": {"max_abs_err": worst, "ms": first["b_call"],
+                         "plain_ms": first["b_plain"], "bound_ms": first["b_bound"],
+                         "bound_by": first["b_by"], "library_ms": None}}
 
 
 def make_train_data(work: Path):
@@ -671,7 +885,8 @@ def train_cli(root: Path, work: Path, bf16: bool) -> dict:
     cb.reset_launches()
     cc.reset_launches()  # the main path starts here
     summary = cli.train(args)
-    launches = {"bn": cb.LAUNCHES, "context": cc.LAUNCHES}  # ... and ends here
+    launches = {"bn": cb.LAUNCHES, "bn_backward": cb.BACKWARD_LAUNCHES,
+                "context": cc.LAUNCHES}  # ... and ends here
     row = summary["epochs"][-1]
     if summary["steps"] != TRAIN_STEPS:
         fail(f"train {tag}: {summary['steps']} steps, want {TRAIN_STEPS}")
@@ -679,9 +894,10 @@ def train_cli(root: Path, work: Path, bf16: bool) -> dict:
         fail(f"train {tag}: loss {row['train_loss']!r}, MAE {row['mae']!r}")
     if not has_checkpoint(str(ckpt)):
         fail(f"train {tag}: no checkpoint under {ckpt}")
-    if launches["bn"] != BN_LAYERS * summary["steps"]:
-        fail(f"train {tag}: bn_moments launched {launches['bn']} times, want "
-             f"{BN_LAYERS} x {summary['steps']} steps")
+    for key in ("bn", "bn_backward"):
+        if launches[key] != BN_LAYERS * summary["steps"]:
+            fail(f"train {tag}: {key} kernel launched {launches[key]} times, "
+                 f"want {BN_LAYERS} x {summary['steps']} steps")
     if launches["context"] != summary["steps"] + summary["eval_batches"]:
         fail(f"train {tag}: context_fused launched {launches['context']} "
              f"times, want {summary['steps']} steps + "
@@ -689,7 +905,8 @@ def train_cli(root: Path, work: Path, bf16: bool) -> dict:
     log(f"[train] {tag}: CLI path, {summary['steps']} steps, loss "
         f"{row['train_loss']:.6g}, eval MAE {row['mae']:.6g} over "
         f"{summary['eval_batches']} batches, checkpoint in {ckpt.name}; "
-        f"launches bn_moments {launches['bn']} (= {BN_LAYERS} x steps), "
+        f"launches bn_moments {launches['bn']} and bn_moments_backward "
+        f"{launches['bn_backward']} (each = {BN_LAYERS} x steps), "
         f"context_fused {launches['context']} (= steps + eval batches)")
     return {**summary, "launches": launches}
 
@@ -740,35 +957,108 @@ def kernel_vs_onepass_step(batch) -> None:
 
     ops = {"kernel": bm.BNOps(impl="kernel", masked_moments=checked,
                               global_moments=bm.global_moments_onepass),
-           "onepass": bm.make_bn_ops("onepass")}
+           "onepass": bm.make_bn_ops("onepass"), "twopass": None}
+    def updated_weights(sd, k):
+        # running stats are held apart; a conv bias right before a BN has
+        # true gradient 0 (BN cancels it), so its update is float residue
+        if k.endswith(("running_mean", "running_var", "num_batches_tracked")):
+            return False
+        prefix, leaf = k.rsplit(".", 1)
+        group, idx = prefix.split(".")[0], prefix.split(".")[-1]
+        return not (leaf == "bias" and group in ("frontend", "backend")
+                    and f"{group}.{int(idx) + 1}.running_mean" in sd)
+
     out = {}
     for name, bn_ops in ops.items():
         state = _state()
+        old = {k: v.detach().clone() for k, v in state.model.state_dict().items()}
         _, m = make_train_step(bn_ops=bn_ops)(state, batch)
-        stats = torch.cat([b for k, b in state.model.state_dict().items()
+        sd = state.model.state_dict()
+        stats = torch.cat([b for k, b in sd.items()
                            if k.endswith(("running_mean", "running_var"))])
-        out[name] = (float(m["loss"]), stats)
-        del state
-    (lk, sk), (lo, so) = out["kernel"], out["onepass"]
+        upd = {k: (sd[k] - old[k]).double() for k in sd if updated_weights(sd, k)}
+        out[name] = (float(m["loss"]), stats, upd)
+        del state, old
+    (lk, sk, uk), (lo, so, uo) = out["kernel"], out["onepass"]
     if len(layers) != BN_LAYERS:
         fail(f"the kernel step ran {len(layers)} BN layers, want {BN_LAYERS}")
     loss_rel = abs(lk - lo) / abs(lo)
     stats_rel = float((sk - so).abs().max() / so.abs().max())
+
+    def update_diff(u):
+        """(all weights' relative L2, worst parameter, its relative L2)"""
+        per = {k: float((u[k] - uo[k]).norm() / uo[k].norm().clamp_min(1e-30))
+               for k in uo}
+        worst_k = max(per, key=per.get)
+        total = float(sum((u[k] - uo[k]).square().sum() for k in uo).sqrt()
+                      / sum(uo[k].square().sum() for k in uo).sqrt())
+        return total, worst_k, per[worst_k]
+
+    upd, upd_k, upd_w = update_diff(uk)
+    noise, noise_k, noise_w = update_diff(out["twopass"][2])
     if not (loss_rel <= STEP_RTOL and stats_rel <= STEP_RTOL):
         fail(f"kernel step vs onepass step: loss rel {loss_rel:.3e}, running "
              f"stats rel {stats_rel:.3e} (tolerance {STEP_RTOL})")
+    if upd > UPDATE_RTOL:
+        fail(f"kernel step vs onepass step: the update differs by {upd:.3e} "
+             f"(relative L2 over all weights, tolerance {UPDATE_RTOL})")
     log(f"[train] kernel step vs onepass step (f32, fixed batch): loss "
         f"{lk:.6g} vs {lo:.6g} (rel {loss_rel:.2e}), running stats rel "
-        f"{stats_rel:.2e} (tolerance {STEP_RTOL}); {len(layers)} BN layers' "
-        f"kernel sums match the plain version at their real inputs, worst "
-        f"abs err {worst:.3e}")
+        f"{stats_rel:.2e} (tolerance {STEP_RTOL}); the update of all "
+        f"{len(uo)} weights within {upd:.2e} relative L2 (tolerance "
+        f"{UPDATE_RTOL}; twopass vs onepass {noise:.2e}), worst parameter "
+        f"{upd_k} {upd_w:.2e} (twopass vs onepass: {noise_k} {noise_w:.2e}); "
+        f"{len(layers)} BN layers' kernel sums match the plain version at "
+        f"their real inputs, worst abs err {worst:.3e}")
 
 
-def step_breakdown(batch, bf16: bool, peaks: dict) -> dict:
-    """Where a training step's time goes: forward, backward and optimizer
-    by CUDA events (median of 3 warm steps), images/s, peak memory, and
-    each kernel's share (its time at the step's shapes x launches)."""
+def device_span(prof, skip=()):
+    """(span, busy) in ms of a profile's device activity: the span from
+    its first device record's start to its last one's end, and the time
+    within it in which at least one kernel, copy or memset ran (overlaps
+    counted once).  Records named in ``skip`` (device-side annotations of
+    ``record_function`` ranges) are left out."""
     import torch
+
+    iv = sorted((ev.time_range.start, ev.time_range.end) for ev in prof.events()
+                if ev.device_type == torch.autograd.DeviceType.CUDA
+                and ev.name not in skip and ev.time_range.end > ev.time_range.start)
+    if not iv:
+        fail("torch.profiler recorded no device activity in the profiled step")
+    busy, (lo, hi) = 0.0, iv[0]
+    for start, end in iv[1:]:
+        if start > hi:
+            busy += hi - lo
+            lo, hi = start, end
+        else:
+            hi = max(hi, end)
+    busy += hi - lo
+    return (max(e for _, e in iv) - iv[0][0]) / 1e3, busy / 1e3
+
+
+def _short(name: str) -> str:
+    """A device kernel's name without its argument list, cut to 70."""
+    import re
+
+    r = _readable(name)
+    if r != name:
+        return r
+    return re.sub(r"\(.*$", "", name)[:70]
+
+
+def step_breakdown(batch, bf16: bool) -> None:
+    """Where a training step's time goes: forward, backward and optimizer
+    by CUDA events (median of 3 warm steps), images/s, peak memory; then
+    the device time of one more step by torch.profiler: the top 15
+    kernels, name-pattern buckets, the BN forward and backward and the
+    context kernel sums, and the device's idle share of that step (see
+    ``device_span``).  The
+    two autograd backwards are labelled with ``record_function`` ranges
+    while that step is profiled, so the device time of whatever they
+    launch (a kernel, or a plain recompute of ATen kernels) sums under one
+    name."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
 
     from can_tpu_torch.ops import bn_moments as bm
     from can_tpu_torch.ops import cuda_bn as cb
@@ -781,7 +1071,7 @@ def step_breakdown(batch, bf16: bool, peaks: dict) -> dict:
     shapes = []
 
     def recording(y, m, axes):
-        shapes.append((tuple(y.shape), y.dtype))
+        shapes.append(tuple(y.shape))
         return bm.masked_moments_kernel(y, m, axes)
 
     ops = bm.BNOps(impl="kernel", masked_moments=recording,
@@ -804,51 +1094,119 @@ def step_breakdown(batch, bf16: bool, peaks: dict) -> dict:
     peak = torch.cuda.max_memory_allocated()
     fwd, bwd, opt = (statistics.median(x[j] for x in splits) for j in range(3))
     step = fwd + bwd + opt
-    # the kernels at this step's shapes (timing does not depend on values)
-    g = torch.Generator(device="cuda").manual_seed(SEED + 9)
-    bn_ms = 0.0
-    for shape, ydt in shapes[:BN_LAYERS]:
-        y = torch.randn(shape, generator=g, device="cuda").to(ydt)
-        m = torch.ones(shape[:3] + (1,), device="cuda")
-        bn_ms += time_ms(lambda: cb.moment_sums_cuda(y, m), reps=5)
-    b, h, w, _ = batch["image"].shape
-    fdt = torch.bfloat16 if bf16 else torch.float32
-    fv = torch.randn((b, h // 8, w // 8, 512), generator=g, device="cuda").to(fdt)
-    aves = [torch.randn((b, s, s, 512), generator=g, device="cuda").to(fdt)
-            for s in cc.SCALES]
-    ws = [(torch.randn((512, 512), generator=g, device="cuda") / 512 ** 0.5).to(fdt)
-          for _ in cc.SCALES]
-    avew, uh, wmat = cc.pack_inputs(fv, aves, ws, (h // 8, w // 8))
-    ctx_ms = time_ms(lambda: cc.context_tail_cuda(fv, avew, uh, wmat), reps=5)
-    ctx_bound_ms = context_bound(fv, avew, uh, wmat, peaks)[0]
-    bn_bound_ms = sum(bn_bound(torch.empty(s, device="meta", dtype=d), peaks)[0]
-                      for s, d in shapes[:BN_LAYERS])
-    log(f"[train] {tag} step on ({b}, {h}, {w}): {step:.1f} ms = forward "
-        f"{fwd:.1f} + backward {bwd:.1f} + optimizer {opt:.1f} ms (CUDA "
-        f"events, median of 3 warm steps); {b / step * 1e3:.2f} images/s; "
+    seen = {}
+    for s in shapes[:BN_LAYERS]:
+        seen[s] = seen.get(s, 0) + 1
+    if seen != dict(BN_STEP_SHAPES):
+        fail(f"the step's BN layers take {seen}, BN_STEP_SHAPES says "
+             f"{dict(BN_STEP_SHAPES)}")
+    b = batch["image"].shape[0]
+    log(f"[train] {tag} step on {tuple(batch['image'].shape[:3])}: {step:.1f} ms "
+        f"= forward {fwd:.1f} + backward {bwd:.1f} + optimizer {opt:.1f} ms "
+        f"(CUDA events, median of 3 warm steps); {b / step * 1e3:.2f} images/s; "
         f"peak memory {peak / 2 ** 30:.2f} GiB")
-    log(f"[train] {tag} kernel shares of the step: bn_moments {BN_LAYERS} "
-        f"launches {bn_ms:.2f} ms ({100 * bn_ms / step:.1f}%; bound "
-        f"{bn_bound_ms:.2f} ms), context_fused 1 launch {ctx_ms:.2f} ms "
-        f"({100 * ctx_ms / step:.1f}%; bound {ctx_bound_ms:.2f} ms); the "
-        f"context backward is the plain version's recompute")
-    return {"step_ms": step, "bn_ms": bn_ms, "ctx_ms": ctx_ms}
+
+    labels = {cb.MomentSums: "bn_moments.backward",
+              cc.ContextTail: "context_fused.backward"}
+    plain = {cls: cls.backward for cls in labels}
+
+    def labelled(fn, label):
+        def bwd_fn(ctx, *grads):
+            with record_function(label):
+                return fn(ctx, *grads)
+        return staticmethod(bwd_fn)
+
+    try:
+        for cls, label in labels.items():
+            cls.backward = labelled(plain[cls], label)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            loss, _ = forward_loss(state, batch, compute_dtype=dt, bn_ops=ops)
+            backward(state, loss)
+            state.apply_update()
+            torch.cuda.synchronize()
+    finally:
+        for cls, fn in plain.items():
+            cls.backward = staticmethod(fn)
+    # a range appears twice: as a host event whose device time sums the
+    # ATen kernels launched inside it, and as a device-side annotation
+    # spanning them (the only record of a kernel launched through ctypes)
+    kernels, ranges, spans = [], {}, {}
+    for ev in prof.key_averages():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            if ev.key in labels.values():
+                spans[ev.key] = _device_us(ev) / 1e3
+            elif _device_us(ev) > 0:
+                kernels.append((_device_us(ev) / 1e3, ev.count, ev.key))
+        elif ev.key in labels.values():
+            ranges[ev.key] = _device_us(ev) / 1e3
+    kernels.sort(reverse=True)
+    total = sum(k[0] for k in kernels)
+    span, busy = device_span(prof, skip=set(labels.values()))
+
+    def inside(label):
+        return ranges.get(label) or spans.get(label, 0.0)
+
+    def pick(*pats, without=()):
+        return sum(ms for ms, _, key in kernels
+                   if any(p in key for p in pats) and not any(p in key for p in without))
+
+    ours = ("bn_moments", "context_")
+    sums = {"bn forward": pick("bn_moments", without=("backward",)),
+            "bn backward (range)": inside("bn_moments.backward"),
+            "context forward": pick("context_"),
+            "context backward (range)": inside("context_fused.backward")}
+    buckets = {"GEMM/convolution": pick("gemm", "conv", "xmma", "cudnn", "cutlass",
+                                        "implicit", "wgrad", "dgrad", "fft",
+                                        without=ours),
+               "elementwise": pick("elementwise", without=ours),
+               "reduction": pick("reduce", without=ours)}
+    log(f"[profile] {tag} one step: device time {total:.2f} ms in "
+        f"{sum(k[1] for k in kernels)} launches of {len(kernels)} kernels; "
+        f"device busy {busy:.2f} ms of the {span:.2f} ms from its first to "
+        f"its last device activity, idle {100 * (1 - busy / span):.1f}% "
+        f"(the profiled step; the unprofiled steps above took {step:.2f} ms "
+        f"by CUDA events)")
+    for i, (ms, n, key) in enumerate(kernels[:15]):
+        log(f"[profile] {tag} #{i + 1} {ms:.3f} ms ({100 * ms / total:.1f}%, "
+            f"{n} launches) {_short(key)}")
+    log(f"[profile] {tag} sums: " + ", ".join(
+        f"{k} {v:.3f} ms ({100 * v / total:.1f}%)" for k, v in sums.items()))
+    log(f"[profile] {tag} name-pattern buckets: " + ", ".join(
+        f"{k} {v:.3f} ms" for k, v in buckets.items())
+        + f", the rest {total - sum(buckets.values()) - pick(*ours):.3f} ms")
+    del state
 
 
-def phase_train(work: Path, peaks: dict) -> dict:
-    root = make_train_data(work)
+def train_data(work: Path) -> Path:
+    """TF32 off, as the train CLI sets it (cuDNN would run f32 convs in
+    TF32), and the synthetic dataset."""
+    import torch
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return make_train_data(work)
+
+
+def phase_train(work: Path) -> dict:
+    """The train CLI in f32 and bf16, then the fixed-batch step checks,
+    split and profile."""
+    root = train_data(work)
     check_schedule(root)
     runs = {tag: train_cli(root, work, tag == "bf16") for tag in ("f32", "bf16")}
     batch = fixed_batch(root)
     kernel_vs_onepass_step(batch)
     for tag in ("f32", "bf16"):
-        step_breakdown(batch, tag == "bf16", peaks)
-    return {"bn": sum(r["launches"]["bn"] for r in runs.values()),
-            "context": sum(r["launches"]["context"] for r in runs.values())}
+        step_breakdown(batch, tag == "bf16")
+    return {k: sum(r["launches"][k] for r in runs.values())
+            for k in ("bn", "bn_backward", "context")}
 
 
-def main() -> int:
+def main(argv) -> int:
     import torch
+
+    measure_only = argv == ["--measure-only"]
+    if argv and not measure_only:
+        fail(f"unknown arguments {argv} (none, or --measure-only)")
 
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke run needs a GPU")
@@ -875,12 +1233,21 @@ def main() -> int:
     peaks = peaks_for(name)
     log(f"[smoke] torch {torch.__version__} cuda {torch.version.cuda} on {name}")
 
-    phase_build()
-    row = phase_kernels(peaks)
-    bn_row = phase_bn_kernels(peaks)
-
     work = ROOT / "build" / "chip_smoke"
     work.mkdir(parents=True, exist_ok=True)
+    phase_build()
+    if measure_only:
+        rows = {(shape, count, name): bn_time(y, m, g1, g2, peaks, f"{shape} {name}")
+                for shape, count, name, y, m, g1, g2 in bn_cases() if count}
+        bn_totals(rows)
+        batch = fixed_batch(train_data(work))
+        for tag in ("f32", "bf16"):
+            step_breakdown(batch, tag == "bf16")
+        log(f"[smoke] --measure-only done in {time.perf_counter() - t_start:.1f}s")
+        log(card)
+        return 0
+    row = phase_kernels(peaks)
+    bn = phase_bn(peaks)
     pth = work / "cannet_seed0_he.pth"
     # He-scaled normals: the reference N(0, 0.01) init collapses every gate
     # to 0.5 and every count to ~1e-8, where parity would prove nothing
@@ -900,7 +1267,7 @@ def main() -> int:
         check_parity(run, dt)  # ends by releasing the engine's weights
     del runs
 
-    train_launches = phase_train(work, peaks)  # resets and reads the counts
+    train_launches = phase_train(work)  # resets and reads the counts
 
     kernels = [{"name": cc.KERNEL, "route": "cuda",
                 "source": "can_tpu_torch/csrc/context_fused.cu",
@@ -913,16 +1280,17 @@ def main() -> int:
                {"name": cb.KERNEL, "route": "cuda",
                 "source": "can_tpu_torch/csrc/bn_moments.cu",
                 "replaces": "can_tpu/ops/pallas_bn.py:104",
-                "launches": train_launches["bn"],
-                "max_abs_err": bn_row["max_abs_err"],
-                "ms": bn_row["ms"], "plain_ms": bn_row["plain_ms"],
-                "bound_ms": bn_row["bound_ms"], "bound_by": bn_row["bound_by"],
-                "library_ms": bn_row["library_ms"]}]
+                "launches": train_launches["bn"], **bn["forward"]},
+               {"name": cb.BACKWARD_KERNEL, "route": "cuda",
+                "source": "can_tpu_torch/csrc/bn_moments.cu",
+                "replaces": "can_tpu/ops/pallas_bn.py:143",
+                "launches": train_launches["bn_backward"], **bn["backward"]}]
     log(f"[smoke] done in {time.perf_counter() - t_start:.1f}s; kernels timed "
         f"at context (8, 96, 128, 512) f32 (bf16: {row['bf16_ms']:.3f} ms), "
-        f"bn_moments {BN_SHAPES[0]} f32; launches: context_fused {launches} "
-        f"serving + {train_launches['context']} training, bn_moments "
-        f"{train_launches['bn']} training")
+        f"bn_moments and bn_moments_backward {BN_STEP_SHAPES[0][0]} f32; launches: "
+        f"context_fused {launches} serving + {train_launches['context']} "
+        f"training, bn_moments {train_launches['bn']} and "
+        f"bn_moments_backward {train_launches['bn_backward']} training")
     log(card)  # the card's name and power limit, as nvidia-smi gives them
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
@@ -930,4 +1298,4 @@ def main() -> int:
     return 0
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

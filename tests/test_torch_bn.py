@@ -130,6 +130,54 @@ def test_moment_sums_function_gradient_matches_jax_vjp(monkeypatch, dtype):
                                rtol=rtol, atol=1e-6)
 
 
+@pytest.mark.parametrize("mask", ["pad", "ones", "zeros"])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_moment_sums_backward_twin_matches_jax_vjp(dtype, mask):
+    """``masked_moment_sums_backward`` (the backward kernel's plain twin,
+    dy = m (g1 + 2 g2 y) rounded once to y's dtype) against ``jax.vjp``
+    of ``pallas_bn._sums`` in interpret mode: f32 to rtol 1e-5 (the same
+    formula, summed in another order), bf16 to one bf16 rounding."""
+    y, m = _masked_input((2, 6, 10, 64), mask=mask, seed=12)
+    rng = np.random.default_rng(13)
+    g1, g2 = (rng.standard_normal(64).astype(np.float32) for _ in range(2))
+    tdt, jdt = ((torch.float32, jnp.float32) if dtype == "f32"
+                else (torch.bfloat16, jnp.bfloat16))
+    yt = torch.from_numpy(y).to(tdt)
+    dy = cb.masked_moment_sums_backward(yt, torch.from_numpy(m),
+                                        torch.from_numpy(g1), torch.from_numpy(g2))
+    yj = jnp.asarray(yt.float().numpy()).astype(jdt)
+    _, vjp = jax.vjp(lambda a: pallas_bn._sums(a, jnp.asarray(m), True), yj)
+    (want,) = vjp((jnp.asarray(g1), jnp.asarray(g2), jnp.zeros((), jnp.float32)))
+    assert dy.dtype == tdt and want.dtype == jdt and dy.shape == yt.shape
+    rtol = 1e-5 if dtype == "f32" else 2 ** -7
+    np.testing.assert_allclose(dy.float().numpy(), np.asarray(want, np.float32),
+                               rtol=rtol, atol=1e-6)
+    if mask == "zeros":
+        assert not dy.float().any()
+
+
+def test_moment_sums_backward_cpu_is_the_plain_recompute():
+    """On a CPU tensor ``MomentSums`` differentiates the plain forward and
+    launches nothing; the kernel wrapper refuses a CPU tensor."""
+    y, m = _masked_input((2, 4, 6, 64), seed=14)
+    rng = np.random.default_rng(15)
+    g1, g2 = (torch.from_numpy(rng.standard_normal(64).astype(np.float32))
+              for _ in range(2))
+    yt, mt = torch.from_numpy(y), torch.from_numpy(m)
+    before = cb.BACKWARD_LAUNCHES
+    dy = cb.MomentSums.backward(type("Ctx", (), {"saved_tensors": (yt, mt)})(),
+                                g1, g2, None)[0]
+    assert cb.BACKWARD_LAUNCHES == before
+    torch.testing.assert_close(dy, cb.moment_sums_vjp_plain(yt, mt, g1, g2),
+                               rtol=0, atol=0)
+    torch.testing.assert_close(dy, cb.masked_moment_sums_backward(yt, mt, g1, g2),
+                               rtol=1e-6, atol=1e-6)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        cb.moment_sums_backward_cuda(yt, mt, g1, g2)
+    cb.reset_launches()
+    assert cb.LAUNCHES == cb.BACKWARD_LAUNCHES == 0
+
+
 # -- bn_moments -----------------------------------------------------------
 @pytest.mark.parametrize("impl,jimpl", IMPLS)
 @pytest.mark.parametrize("mask", ["pad", "zeros"])

@@ -10,7 +10,7 @@ No JAX here: each kernel is held against its plain PyTorch version, at the
 tolerances chip_smoke.py states — context: f32 rtol/atol 1e-5, bf16
 2e-2 / 1e-2; BN moment sums: s1 and s2 within 1e-5 of sum|y m| and
 sum y^2 m per channel (only the summation order differs: bf16 is widened
-exactly), s0 exact.
+exactly), s0 exact; BN backward dy: f32 rtol 1e-6, bf16 one bf16 rounding.
 """
 
 import pytest
@@ -162,7 +162,12 @@ def _check_sums(got, y, m):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(2, 16, 24, 64), (3, 37, 51, 128),
                                    (2, 9, 13, 256), (4, 18, 24, 512),
-                                   (1, 1, 1, 64)])
+                                   (1, 1, 1, 64),
+                                   # ragged: n_pix % 4 != 0 (m's hand-copied
+                                   # end), 8 channels, a partial last stage,
+                                   # two channel groups (C / vec > 256)
+                                   (3, 1, 1, 64), (1, 3, 3, 8), (5, 7, 11, 32),
+                                   (1, 7, 9, 2048)])
 def test_bn_kernel_matches_plain_version(cuda, shape, dtype):
     y, m = _bn_inputs(shape, dtype, cuda)
     before = cb.LAUNCHES
@@ -172,17 +177,142 @@ def test_bn_kernel_matches_plain_version(cuda, shape, dtype):
     _check_sums(got, y, m)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(1, 8, 8, 512), (1, 12, 8, 512), (1, 2, 3, 64)])
+def test_bn_kernel_below_one_full_cluster(cuda, shape, dtype):
+    """Grids that do not fill whole clusters: one block (a cluster of 1),
+    and in f32 (1, 12, 8, 512)'s three blocks of pixels rounded up to two
+    clusters of 2 with an empty block."""
+    b, h, w, c = shape
+    n = b * h * w
+    plan = cb.forward_plan(n, c, dtype)
+    assert plan["blocks"] % plan["cluster"] == 0
+    assert plan["blocks"] * plan["chunk"] >= n
+    if shape == (1, 2, 3, 64):
+        assert plan["blocks"] == plan["cluster"] == 1
+    if shape == (1, 12, 8, 512) and dtype == torch.float32:
+        assert (plan["blocks"] - 1) * plan["chunk"] >= n  # one block has no pixels
+    y, m = _bn_inputs(shape, dtype, cuda, seed=2)
+    _check_sums(cb.moment_sums_cuda(y, m), y, m)
+
+
+def test_bn_kernel_s0_above_2_24_valid_pixels(cuda):
+    """16,793,603 valid pixels (odd, above 2^24): s0 is the f32 nearest
+    the true count (a tie, to even), not an f32 running count's drift."""
+    import numpy as np
+
+    shape = (1, 4097, 4099, 8)
+    y, m = _bn_inputs(shape, torch.bfloat16, cuda, pad=False, seed=3)
+    n = shape[1] * shape[2]
+    assert n > 2 ** 24 and n % 2 == 1
+    s1, s2, s0 = cb.moment_sums_cuda(y, m)
+    assert float(s0) == float(np.float32(n)) == n + 1
+    yf = y.float()
+    scale1 = torch.sum((yf * m).abs(), dim=(0, 1, 2))
+    assert bool(((s1 - (yf * m).sum(dim=(0, 1, 2))).abs() <= 1e-5 * scale1).all())
+    assert bool(((s2 - (yf * yf * m).sum(dim=(0, 1, 2))).abs()
+                 <= 1e-5 * (yf * yf * m).sum(dim=(0, 1, 2))).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bn_kernels_take_misaligned_views(cuda, dtype):
+    """y and m as views 4 bytes past a 16-byte boundary: the wrapper
+    copies them aligned, and both kernels give the plain answers."""
+    shape = (2, 9, 13, 64)
+    y0, m0 = _bn_inputs(shape, dtype, cuda, seed=4)
+    ybuf = torch.empty(y0.numel() + 8, device=cuda, dtype=dtype)
+    mbuf = torch.empty(m0.numel() + 4, device=cuda)
+    y = ybuf[2 if dtype == torch.bfloat16 else 1:][:y0.numel()].view(shape)
+    m = mbuf[1:][:m0.numel()].view(m0.shape)
+    y.copy_(y0)
+    m.copy_(m0)
+    assert y.data_ptr() % 16 and m.data_ptr() % 16
+    _check_sums(cb.moment_sums_cuda(y, m), y0, m0)
+    g1 = torch.linspace(-1, 1, 64, device=cuda)
+    g2 = torch.linspace(0.5, -0.5, 64, device=cuda)
+    assert torch.equal(cb.moment_sums_backward_cuda(y, m, g1, g2),
+                       cb.moment_sums_backward_cuda(y0, m0, g1, g2))
+
+
+def test_bn_kernel_on_two_streams(cuda):
+    """Calls in flight on two streams at once each keep their own ticket
+    and partials: every result is bitwise the one-stream result."""
+    ya, ma = _bn_inputs((8, 72, 96, 64), torch.float32, cuda, seed=5)
+    yb, mb = _bn_inputs((4, 36, 48, 128), torch.float32, cuda, seed=6)
+    want_a = torch.cat([t.reshape(-1) for t in cb.moment_sums_cuda(ya, ma)])
+    want_b = torch.cat([t.reshape(-1) for t in cb.moment_sums_cuda(yb, mb)])
+    sa, sb = torch.cuda.Stream(), torch.cuda.Stream()
+    torch.cuda.synchronize()
+    got_a, got_b = [], []
+    for _ in range(20):
+        with torch.cuda.stream(sa):
+            got_a.append(torch.cat([t.reshape(-1) for t in cb.moment_sums_cuda(ya, ma)]))
+        with torch.cuda.stream(sb):
+            got_b.append(torch.cat([t.reshape(-1) for t in cb.moment_sums_cuda(yb, mb)]))
+    torch.cuda.synchronize()
+    assert all(torch.equal(g, want_a) for g in got_a)
+    assert all(torch.equal(g, want_b) for g in got_b)
+    keys = [k for k in cb._scratch if k[0] == cuda.index]
+    assert (cuda.index, sa.cuda_stream) in keys and (cuda.index, sb.cuda_stream) in keys
+
+
+def test_bn_kernel_is_one_launch_per_call(cuda):
+    """torch.profiler sees exactly one device kernel per forward call and
+    one per backward call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    y, m = _bn_inputs((8, 72, 96, 512), torch.bfloat16, cuda, seed=7)
+    g1 = torch.linspace(-1, 1, 512, device=cuda)
+    g2 = torch.linspace(0.5, -0.5, 512, device=cuda)
+    cb.moment_sums_cuda(y, m)
+    cb.moment_sums_backward_cuda(y, m, g1, g2)
+    torch.cuda.synchronize()
+    for fn in (lambda: cb.moment_sums_cuda(y, m),
+               lambda: cb.moment_sums_backward_cuda(y, m, g1, g2)):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                fn()
+            torch.cuda.synchronize()
+        kernels = [ev for ev in prof.key_averages()
+                   if ev.device_type == torch.autograd.DeviceType.CUDA]
+        assert len(kernels) == 1 and kernels[0].count == 3, [
+            (ev.key, ev.count) for ev in kernels]
+
+
 def test_bn_kernel_all_zero_mask_gives_exact_zeros(cuda):
     y, m = _bn_inputs((2, 16, 24, 64), torch.float32, cuda)
     s1, s2, s0 = cb.moment_sums_cuda(y, torch.zeros_like(m))
     assert not bool(s1.any()) and not bool(s2.any()) and float(s0) == 0.0
 
 
-def test_bn_kernel_is_deterministic(cuda):
-    y, m = _bn_inputs((8, 72, 96, 512), torch.float32, cuda)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bn_kernel_is_deterministic(cuda, dtype):
+    y, m = _bn_inputs((8, 72, 96, 512), dtype, cuda)
     a = torch.cat([t.reshape(-1) for t in cb.moment_sums_cuda(y, m)])
     b = torch.cat([t.reshape(-1) for t in cb.moment_sums_cuda(y, m)])
     assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 16, 24, 64), (3, 37, 51, 128),
+                                   (1, 3, 3, 8), (8, 72, 96, 512),
+                                   (1, 7, 9, 2048)])
+def test_bn_backward_kernel_matches_twin(cuda, shape, dtype):
+    """dy = m (g1 + 2 g2 y) against ``masked_moment_sums_backward``: f32
+    within rtol 1e-6, bf16 within one bf16 rounding; bitwise repeatable."""
+    y, m = _bn_inputs(shape, dtype, cuda, seed=8)
+    g = torch.Generator(device=cuda).manual_seed(9)
+    g1 = torch.randn((shape[-1],), generator=g, device=cuda)
+    g2 = torch.randn((shape[-1],), generator=g, device=cuda)
+    before = cb.BACKWARD_LAUNCHES
+    dy = cb.moment_sums_backward_cuda(y, m, g1, g2)
+    torch.cuda.synchronize()
+    assert cb.BACKWARD_LAUNCHES == before + 1
+    want = cb.masked_moment_sums_backward(y, m, g1, g2)
+    assert dy.dtype == dtype and dy.shape == y.shape
+    rtol = 1e-6 if dtype == torch.float32 else 2 ** -7
+    torch.testing.assert_close(dy.float(), want.float(), rtol=rtol, atol=1e-30)
+    assert torch.equal(dy, cb.moment_sums_backward_cuda(y, m, g1, g2))
 
 
 def test_bn_kernel_refuses_what_it_does_not_take(cuda):
@@ -199,13 +329,16 @@ def test_bn_kernel_refuses_what_it_does_not_take(cuda):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_bn_function_gradient_is_plain_vjp(cuda, dtype):
-    """dy = g1 m + 2 g2 y m, cast to y's dtype; m gets no gradient."""
+    """dy = g1 m + 2 g2 y m, cast to y's dtype, by the backward kernel
+    through autograd; m gets no gradient."""
     y, m = _bn_inputs((2, 8, 12, 128), dtype, cuda)
     y.requires_grad_()
     s1, s2, s0 = cb.moment_sums(y, m)
     g1 = torch.linspace(-1, 1, 128, device=cuda)
     g2 = torch.linspace(0.5, -0.5, 128, device=cuda)
+    before = cb.BACKWARD_LAUNCHES
     (dy,) = torch.autograd.grad((s1 * g1).sum() + (s2 * g2).sum(), (y,))
+    assert cb.BACKWARD_LAUNCHES == before + 1  # the backward is the kernel
     want = ((g1 + 2 * g2 * y.detach().float()) * m).to(dtype)
     assert dy.dtype == dtype
     # f32: rounding order of the two terms; bf16: one rounding of that
