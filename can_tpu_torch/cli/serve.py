@@ -5,18 +5,23 @@ Single-replica counterpart of ``can_tpu/cli/serve.py``::
 
     python -m can_tpu_torch.cli.serve --torch-pth epoch_354.pth \\
         --bucket-shapes 384x512,512x768,768x1024 --max-batch 8 --port 8000
+    python -m can_tpu_torch.cli.serve --checkpoint-dir ./checkpoints --syncBN
 
     curl -X POST --data-binary @img.npy \\
         'http://127.0.0.1:8000/predict?deadline_ms=200'
 
-``--platform default`` (or ``gpu``) runs on the CUDA device and exits
-non-zero when there is none; ``--platform cpu`` is the explicit CPU run.
+The weights load as the eval CLI loads them (``cli/test.py``'s
+``validate_params_source`` and ``load_params``): the train CLI's
+checkpoint directory (best MAE, else the latest, or ``--epoch``; the BN
+model with its running statistics under ``--syncBN``), a reference
+``.pth`` or a ``save_params_npz`` ``.npz``.  ``--platform default`` (or
+``gpu``) runs on the CUDA device and exits non-zero when there is none;
+``--platform cpu`` is the explicit CPU run.
 """
 
 from __future__ import annotations
 
 import argparse
-import os
 import re
 from typing import List, Tuple
 
@@ -51,12 +56,17 @@ def parse_bucket_shapes(spec: str) -> List[Tuple[int, int]]:
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description="CANNet online serving (PyTorch/CUDA)")
     p.add_argument("--checkpoint-dir", type=str, default=None,
-                   help="Orbax checkpoint dir: not readable here (the "
-                        "training slice brings checkpoints); refused")
+                   help="the train CLI's checkpoint dir (default "
+                        "./checkpoints)")
+    p.add_argument("--epoch", type=int, default=None,
+                   help="checkpoint epoch (default: best by MAE, else latest)")
     p.add_argument("--torch-pth", type=str, default="",
                    help="serve a reference-layout torch checkpoint")
     p.add_argument("--params-npz", type=str, default="",
                    help="serve a can_tpu save_params_npz .npz")
+    p.add_argument("--syncBN", action="store_true",
+                   help="the checkpoint is the BatchNorm model (served with "
+                        "its running statistics)")
     p.add_argument("--bucket-shapes", type=parse_bucket_shapes,
                    default=parse_bucket_shapes("384x512,512x768,768x1024"),
                    help="comma-separated HxW bucket ladder; requests snap UP "
@@ -94,41 +104,10 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def validate_params_source(args) -> None:
-    """Reject conflicting, missing or unsupported weight sources (the
-    rules of ``can_tpu/cli/test.py::validate_params_source`` for the
-    sources this slice reads).  Pure argument checks."""
-    if args.checkpoint_dir is not None:
-        raise SystemExit("--checkpoint-dir (Orbax) is not readable by "
-                         "can_tpu_torch yet: checkpoints come with the "
-                         "training slice; serve --torch-pth or --params-npz")
-    if args.torch_pth and args.params_npz:
-        raise SystemExit("give --torch-pth OR --params-npz, not both")
-    if not (args.torch_pth or args.params_npz):
-        raise SystemExit("give --torch-pth or --params-npz (Orbax "
-                         "checkpoints come with the training slice)")
-    for path in (args.torch_pth, args.params_npz):
-        if path and not os.path.isfile(path):
-            raise SystemExit(f"no such checkpoint file: {path}")
-
-
-def load_params(args):
-    """The reference-layout f32 state dict named by the args."""
-    from can_tpu_torch.utils.torch_import import (
-        load_params_npz,
-        load_torch_checkpoint,
-    )
-
-    if args.torch_pth:
-        print(f"[load] reference torch checkpoint {args.torch_pth}")
-        return load_torch_checkpoint(args.torch_pth)
-    print(f"[load] imported params {args.params_npz}")
-    return load_params_npz(args.params_npz)
-
-
 def build_service(args):
     """Engine + warmed service from parsed args (no networking) — the seam
     tests and ``chip_smoke.py`` drive; ``main`` adds HTTP around it."""
+    from can_tpu_torch.cli.test import load_params, validate_params_source
     from can_tpu_torch.serve import CountService, ServeEngine
 
     try:
@@ -143,7 +122,7 @@ def build_service(args):
     if args.max_body_mb <= 0:
         raise SystemExit(f"--max-body-mb must be positive, got "
                          f"{args.max_body_mb}")
-    state_dict = load_params(args)
+    state_dict, _ = load_params(args)
     engine = ServeEngine(state_dict, device=device,
                          serve_dtype=args.serve_dtype)
     high_water = (args.high_water if args.high_water is not None

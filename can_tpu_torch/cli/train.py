@@ -12,11 +12,14 @@ plus the best MAE) to ``--checkpoint-dir``; ``--init_checkpoint`` resumes.
 
 ``--platform default`` (or ``gpu``) trains on the CUDA device and exits
 non-zero when there is none; ``--platform cpu`` is the explicit CPU run.
-In f32 TF32 is off.  ``--pad-multiple`` defaults to ``none`` (exact
-shapes): eager PyTorch compiles nothing per shape, so the JAX package's
-``auto`` bucket ladder buys nothing here and is refused until the planner
-slice.  DDP, cross-GPU SyncBN, prefetch, the prepared store and telemetry
-come with later slices (ROADMAP Queue 1).
+In f32 TF32 is off.  ``--pad-multiple auto`` (the default, as in the JAX
+package) buckets by exact shapes when at most ``--max-buckets`` occur,
+else by the planner's ladder; straggler groups launch at their exact
+size and the train batcher caps each launch at the card's memory
+(``cli/common.py``).  Batches load on ``--num-workers`` threads and are
+put on the card two ahead (``data/prefetch.py``); density maps come from
+a prepared store where one validates (``--prepared-root``).  DDP,
+cross-GPU SyncBN and telemetry come with later slices (ROADMAP Queue 1).
 """
 
 from __future__ import annotations
@@ -27,27 +30,21 @@ import itertools
 import os
 import sys
 
+import numpy as np
 import torch
 
+from can_tpu_torch.cli.common import (
+    DEFAULT_LAUNCH_COST_MPX,
+    max_launch_pixels,
+    parse_launch_cost,
+    parse_pad_multiple,
+    print_data_line,
+    resolve_launch_cost_px,
+    resolve_num_workers,
+    resolve_split_roots,
+    split_prepared_spec,
+)
 from can_tpu_torch.device import PLATFORMS, NoCudaDeviceError, resolve_device, use_full_f32
-
-
-def parse_pad_multiple(value: str):
-    """``--pad-multiple``: an integer multiple, or none/exact/0 for exact
-    shapes; ``auto`` is refused."""
-    s = str(value).strip().lower()
-    if s in ("none", "exact", "0"):
-        return None
-    if s == "auto":
-        raise argparse.ArgumentTypeError(
-            "'auto' (the bucket ladder) comes with the planner slice of "
-            "can_tpu_torch (ROADMAP Queue 1); give an integer multiple of 8 "
-            "or 'none'")
-    try:
-        return int(s)
-    except ValueError:
-        raise argparse.ArgumentTypeError(
-            f"--pad-multiple takes an integer or 'none', got {value!r}") from None
 
 
 def parse_args(argv=None):
@@ -84,9 +81,40 @@ def parse_args(argv=None):
                    help="warm-start the parameters from a reference-layout "
                         ".pth (strict layout check; optimizer and step fresh)")
     p.add_argument("--seed", type=int, default=0)
-    p.add_argument("--pad-multiple", type=parse_pad_multiple, default=None,
-                   help="bucket H, W up to this multiple of 8; 'none' "
-                        "(default) buckets by exact snapped shape")
+    p.add_argument("--pad-multiple", type=parse_pad_multiple, default="auto",
+                   help="'auto' (default): exact shapes when at most "
+                        "--max-buckets occur, else the planner's bucket "
+                        "ladder; 'none'/'exact': exact snapped shapes; or "
+                        "an integer multiple of 8")
+    p.add_argument("--max-buckets", type=int, default=24,
+                   help="budget of distinct (shape x batch size) programs "
+                        "for --pad-multiple auto")
+    p.add_argument("--no-remnant-batches", action="store_true",
+                   help="pad straggler groups to the full batch instead of "
+                        "launching them at their exact size")
+    p.add_argument("--launch-cost-mpx", type=parse_launch_cost,
+                   default=DEFAULT_LAUNCH_COST_MPX,
+                   help="fixed cost of one step launch in megapixel "
+                        "equivalents, for the planner's pixels-against-"
+                        "launches trade (default: the card's measured "
+                        "launch, cli/common.py); 'auto' measures this host")
+    p.add_argument("--num-workers", type=int, default=None,
+                   help="data-loading threads (default min(8, CPUs); 0 = "
+                        "load in the main thread)")
+    p.add_argument("--prepared-root", type=str, default="auto",
+                   help="prepared 1/8-density store: 'auto' (default) "
+                        "probes each split's <gt_root>/prepared and decodes "
+                        "when it is absent or stale; 'off'; or a root of "
+                        "per-split stores (<path>/train, <path>/test) that "
+                        "must validate")
+    p.add_argument("--item-cache-mb", type=float, default=0.0,
+                   help="in-memory LRU over decoded items, in MB, shared by "
+                        "both splits (0 = off)")
+    p.add_argument("--show", action="store_true",
+                   help="save a test image's density maps as PNGs under "
+                        "<checkpoint-dir>/temp at every eval")
+    p.add_argument("--wandb", action="store_true",
+                   help="also log to wandb where it is installed")
     p.add_argument("--eval-interval", type=int, default=1,
                    help="evaluate and checkpoint every N epochs (the final "
                         "epoch always evaluates)")
@@ -97,27 +125,6 @@ def parse_args(argv=None):
                    help="default/gpu: the CUDA device (exit non-zero without "
                         "one); cpu: run on the CPU")
     return p.parse_args(argv)
-
-
-def resolve_split_roots(split: str, image_root: str, gt_root: str,
-                        data_root: str):
-    """Explicit per-split roots win over ``--data_root``'s ShanghaiTech
-    layout; either give both roots of the split or a data root."""
-    if image_root or gt_root:
-        if not (image_root and gt_root):
-            raise SystemExit(f"give both --{split}-image-root and "
-                             f"--{split}-gt-root (or neither, with --data_root)")
-        roots = (image_root, gt_root)
-    elif data_root:
-        base = os.path.join(data_root, f"{split}_data")
-        roots = (os.path.join(base, "images"), os.path.join(base, "ground_truth"))
-    else:
-        raise SystemExit(f"need --data_root or --{split}-image-root/"
-                         f"--{split}-gt-root")
-    for d in roots:
-        if not os.path.isdir(d):
-            raise SystemExit(f"no such dataset directory: {d}")
-    return roots
 
 
 def run_config(args) -> dict:
@@ -142,6 +149,8 @@ def validate(args):
                          "always evaluates)")
     if args.batch_size < 1 or args.epochs < 1:
         raise SystemExit("--batch-size and --epochs must be >= 1")
+    if args.item_cache_mb < 0:
+        raise SystemExit("--item-cache-mb must be >= 0")
     roots = (resolve_split_roots("train", args.train_image_root,
                                  args.train_gt_root, args.data_root)
              + resolve_split_roots("test", args.test_image_root,
@@ -166,10 +175,12 @@ def validate(args):
 
 
 def train(args) -> dict:
-    """The whole run; returns ``{"steps", "eval_batches", "epochs" (one
+    """The whole run; returns ``{"steps", "schedule_steps" (the planned
+    schedule's steps over the epochs run), "eval_batches", "epochs" (one
     dict per epoch), "best_mae", "checkpoint_dir"}``.  Raises SystemExit
     on bad arguments and without the asked-for device."""
-    from can_tpu_torch.data import CrowdDataset, ShardedBatcher
+    from can_tpu_torch.data import CrowdDataset, ItemCache, ShardedBatcher, StaleStoreError
+    from can_tpu_torch.data.prefetch import DevicePut
     from can_tpu_torch.models import CANNet
     from can_tpu_torch.ops.bn_moments import make_bn_ops
     from can_tpu_torch.train import (
@@ -180,8 +191,8 @@ def train(args) -> dict:
         make_train_step,
         train_one_epoch,
     )
-    from can_tpu_torch.train.steps import batch_to_device
     from can_tpu_torch.utils.checkpoint import CheckpointManager, save_run_config
+    from can_tpu_torch.utils.logging import MetricLogger
 
     train_img, train_gt, test_img, test_gt = validate(args)
     try:
@@ -195,21 +206,39 @@ def train(args) -> dict:
           + (f" ({torch.cuda.get_device_name(device)})"
              if device.type == "cuda" else ""))
 
-    train_ds = CrowdDataset(train_img, train_gt, phase="train",
-                            u8_output=args.u8_input)
-    test_ds = CrowdDataset(test_img, test_gt, phase="test",
-                           u8_output=args.u8_input)
+    item_cache = (ItemCache(int(args.item_cache_mb * 1e6))
+                  if args.item_cache_mb > 0 else None)
+    try:
+        train_ds, test_ds = [
+            CrowdDataset(img, gt, phase=split, u8_output=args.u8_input,
+                         prepared=split_prepared_spec(args.prepared_root, split),
+                         item_cache=item_cache)
+            for split, img, gt in (("train", train_img, train_gt),
+                                   ("test", test_img, test_gt))]
+    except StaleStoreError as e:
+        raise SystemExit(f"--prepared-root {args.prepared_root}: {e}") from None
+    print("[data] prepared store: " + " ".join(
+        f"{split}={'on' if d.prepared_note['active'] else 'off (' + str(d.prepared_note['reason']) + ')'}"
+        for split, d in (("train", train_ds), ("test", test_ds))))
+    num_workers = resolve_num_workers(args.num_workers)
+    common = dict(seed=args.seed, pad_multiple=args.pad_multiple,
+                  max_buckets=args.max_buckets, num_workers=num_workers,
+                  remnant_sizes=not args.no_remnant_batches,
+                  launch_cost_px=resolve_launch_cost_px(args.launch_cost_mpx,
+                                                        device, announce=True))
+    # the memory cap per launch: cells whose full batch would not fit the
+    # card run at smaller menu sizes (remnant mode only, as in JAX)
+    cap = (None if args.no_remnant_batches
+           else max_launch_pixels(bf16=args.bf16, device=device))
     train_batcher = ShardedBatcher(train_ds, args.batch_size, shuffle=True,
-                                   seed=args.seed, pad_multiple=args.pad_multiple)
+                                   max_launch_px=cap, **common)
     test_batcher = ShardedBatcher(test_ds, args.batch_size, shuffle=False,
-                                  seed=args.seed, pad_multiple=args.pad_multiple)
+                                  **common)
     print(f"[data] train={len(train_ds)} test={len(test_ds)} "
-          f"batch={args.batch_size}")
+          f"batch={args.batch_size} workers={num_workers} launch cap "
+          + (f"{cap / 1e6:.1f} Mpx" if cap is not None else "none"))
     for tag, b in (("train", train_batcher), ("test", test_batcher)):
-        print(f"[data] {tag}: buckets={b.describe_buckets()} -> "
-              f"{b.distinct_shapes(0)} distinct batch shapes, "
-              f"{b.batches_per_epoch(0)} batches, padding overhead "
-              f"{b.padding_overhead():.1%}")
+        print_data_line(tag, b)
 
     model = CANNet(device=device, seed=args.seed, batch_norm=args.syncBN)
     if args.init_torch_pth:
@@ -252,37 +281,70 @@ def train(args) -> dict:
 
     train_step = make_train_step(compute_dtype=compute_dtype, bn_ops=bn_ops)
     eval_step = make_eval_step(compute_dtype=compute_dtype)
-    put = lambda b: batch_to_device(b, device)  # noqa: E731
-    summary = {"steps": 0, "eval_batches": 0, "epochs": [],
-               "checkpoint_dir": ckpt.directory}
-    for epoch in range(start_epoch, args.epochs):
-        batches = train_batcher.epoch(epoch)
-        if args.max_steps_per_epoch:
-            batches = itertools.islice(batches, args.max_steps_per_epoch)
-        lr = state.lr()
-        state, stats = train_one_epoch(train_step, state, batches, put_fn=put,
-                                       epoch=epoch)
-        row = {"epoch": epoch, "train_loss": stats.loss, "lr": lr,
-               "img_per_s": stats.img_per_s, "epoch_s": stats.seconds,
-               "steps": stats.steps, "distinct_shapes": stats.distinct_shapes}
-        summary["steps"] += stats.steps
-        if (epoch + 1) % args.eval_interval == 0 or epoch == args.epochs - 1:
-            metrics = evaluate(eval_step, state.model, test_batcher.epoch(0),
-                               put_fn=put, dataset_size=test_batcher.dataset_size)
-            summary["eval_batches"] += metrics["batches"]
-            row.update(mae=metrics["mae"], mse=metrics["mse"])
-            ckpt.save(epoch, state, mae=metrics["mae"],
-                      extra={"mse": metrics["mse"]})
-            if best is None or metrics["mae"] < best:
-                best = metrics["mae"]
-                print(f"[best] epoch {epoch}: MAE {best:.3f}")
-        print("[epoch] " + " ".join(
-            f"{k}={v:.6g}" if isinstance(v, float) else f"{k}={v}"
-            for k, v in row.items()), flush=True)
-        summary["epochs"].append(row)
+    put = DevicePut(device)
+    logger = MetricLogger(use_wandb=args.wandb, run_id_file=os.path.join(
+        args.checkpoint_dir, "wandb_run_id.txt"))
+    summary = {"steps": 0, "schedule_steps": 0, "eval_batches": 0,
+               "epochs": [], "checkpoint_dir": ckpt.directory}
+    try:
+        for epoch in range(start_epoch, args.epochs):
+            batches = train_batcher.epoch(epoch)
+            summary["schedule_steps"] += train_batcher.batches_per_epoch(epoch)
+            if args.max_steps_per_epoch:
+                batches = itertools.islice(batches, args.max_steps_per_epoch)
+            lr = state.lr()
+            state, stats = train_one_epoch(train_step, state, batches,
+                                           put_fn=put, epoch=epoch,
+                                           prefetch=put.depth)
+            row = {"epoch": epoch, "train_loss": stats.loss, "lr": lr,
+                   "img_per_s": stats.img_per_s, "epoch_s": stats.seconds,
+                   "steps": stats.steps,
+                   "distinct_shapes": stats.distinct_shapes}
+            summary["steps"] += stats.steps
+            if (epoch + 1) % args.eval_interval == 0 or epoch == args.epochs - 1:
+                metrics = evaluate(eval_step, state.model, test_batcher.epoch(0),
+                                   put_fn=put, prefetch=put.depth,
+                                   dataset_size=test_batcher.dataset_size)
+                summary["eval_batches"] += metrics["batches"]
+                row.update(mae=metrics["mae"], mse=metrics["mse"])
+                ckpt.save(epoch, state, mae=metrics["mae"],
+                          extra={"mse": metrics["mse"]})
+                if best is None or metrics["mae"] < best:
+                    best = metrics["mae"]
+                    print(f"[best] epoch {epoch}: MAE {best:.3f}")
+                if args.show:
+                    _save_sample_viz(args, state.model, test_ds, epoch, logger,
+                                     compute_dtype)
+            logger.log(row, step=epoch)
+            summary["epochs"].append(row)
+    finally:
+        train_batcher.close()
+        test_batcher.close()
+        logger.finish()
+    if item_cache is not None:
+        print(f"[data] item cache: {item_cache.stats()}")
     summary["best_mae"] = best
     print(f"[done] best MAE {best:.3f}" if best is not None else "[done]")
     return summary
+
+
+def _save_sample_viz(args, model, test_ds, epoch, logger, compute_dtype) -> None:
+    """One seeded test image's ground-truth and estimated density maps as
+    PNGs under ``<checkpoint-dir>/temp``, handed to the logger."""
+    from can_tpu_torch.data import normalize_host
+    from can_tpu_torch.utils.viz import save_density_visualization
+
+    idx = int(np.random.default_rng((args.seed, epoch)).integers(len(test_ds)))
+    img, gt = test_ds[idx]
+    img = normalize_host(img)  # no-op for the f32 path
+    device = next(model.parameters()).device
+    with torch.inference_mode():
+        et = model(torch.from_numpy(np.ascontiguousarray(img))[None].to(device),
+                   compute_dtype=compute_dtype)
+    paths = save_density_visualization(
+        img, gt, et[0].float().cpu().numpy(),
+        os.path.join(args.checkpoint_dir, "temp"), tag=f"epoch{epoch}")
+    logger.log_images(paths, caption=f"epoch {epoch}", step=epoch)
 
 
 def main(argv=None) -> int:

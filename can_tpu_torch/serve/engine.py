@@ -39,12 +39,16 @@ from can_tpu_torch.serve.quant import (
 )
 from can_tpu_torch.train.loss import density_counts
 from can_tpu_torch.train.steps import normalize_on_device
+from can_tpu_torch.utils.torch_import import is_batch_norm_layout
 
 
 class ServeEngine:
     """Executes padded serve batches on one device.
 
-    state_dict: reference-layout f32 weights (``utils.torch_import``).
+    state_dict: reference-layout f32 weights (``utils.torch_import``),
+      plain or BN; a BN model normalises with its running statistics,
+      kept in f32 in every serve dtype (as the JAX engine keeps its
+      ``batch_stats``).
     serve_dtype: "f32" | "bf16" (``serve/quant.py``).
     device: where the weights live and the batches run (no default: the
     caller resolves it, ``device.resolve_device``).
@@ -59,7 +63,11 @@ class ServeEngine:
         if self.device.type == "cuda" and serve_dtype == "f32":
             use_full_f32()
         model = CANNet(device=self.device, dtype=storage_dtype_for(serve_dtype),
-                       seed=None)
+                       seed=None, batch_norm=is_batch_norm_layout(state_dict))
+        for layer in model.modules():
+            if isinstance(layer, torch.nn.BatchNorm2d):
+                layer.running_mean = layer.running_mean.float()
+                layer.running_var = layer.running_var.float()
         model.load_state_dict(quantize_tree(state_dict, serve_dtype),
                               strict=True)
         self.model: Optional[CANNet] = model.to(

@@ -18,6 +18,7 @@ from typing import Dict
 import torch
 
 SERVE_DTYPES = ("f32", "bf16", "int8")
+RUNNING_STATS = ("running_mean", "running_var")
 PORTED_SERVE_DTYPES = ("f32", "bf16")
 INT8_MESSAGE = ("--serve-dtype int8 (weight-only PTQ with in-program "
                 "dequantisation) is not ported yet: it comes with the serve "
@@ -34,11 +35,14 @@ def _check(serve_dtype: str) -> None:
 
 def quantize_tree(state_dict: Dict[str, torch.Tensor],
                   serve_dtype: str) -> Dict[str, torch.Tensor]:
-    """f32 state dict -> the storage dict for ``serve_dtype``."""
+    """f32 state dict -> the storage dict for ``serve_dtype``.  BN running
+    statistics stay f32 (the JAX package's ``batch_stats`` are not
+    quantised either)."""
     _check(serve_dtype)
     if serve_dtype == "f32":
         return dict(state_dict)
-    return {k: v.to(torch.bfloat16) if v.is_floating_point() else v
+    return {k: v.to(torch.bfloat16)
+            if v.is_floating_point() and not k.endswith(RUNNING_STATS) else v
             for k, v in state_dict.items()}
 
 

@@ -1,5 +1,8 @@
 """Host-side epoch loops (counterpart of ``can_tpu/train/loop.py:44-476``;
-no telemetry, health or elastic hooks in this slice).
+the telemetry, health and elastic hooks come with later slices).
+
+* Batches are loaded and put on the device ``prefetch`` batches ahead in
+  a background thread (``data/prefetch.py``; 0 = synchronous).
 
 * Metrics stay on the device and are fetched once per window of
   ``check_every`` steps — one host sync per window, never one per step.
@@ -17,6 +20,7 @@ from typing import Callable, Iterable, List, NamedTuple
 
 import torch
 
+from can_tpu_torch.data.prefetch import prefetch_to_device
 from can_tpu_torch.train.steps import NonFiniteLossError
 
 
@@ -62,20 +66,22 @@ def _flush(pending, loss_sum, img_sum, check_finite, epoch, step_count):
 
 def train_one_epoch(train_step: Callable, state, batches: Iterable, *,
                     put_fn: Callable, epoch: int = 0,
-                    check_finite: bool = True, check_every: int = 8):
+                    check_finite: bool = True, check_every: int = 8,
+                    prefetch: int = 2):
     """Run one epoch; returns ``(state, EpochStats)``.
 
     train_step: ``(state, device_batch) -> (state, metrics)``.
-    batches: iterable of ``data.Batch``; put_fn: Batch -> device batch dict.
+    batches: iterable of ``data.Batch``; put_fn: Batch -> device batch dict
+    (``data.prefetch.DevicePut``).
     check_every: steps per metric flush (one host sync per window).
+    prefetch: batches loaded and put ahead in a background thread.
     """
     loss_sum = img_sum = 0.0
     steps = 0
     shapes = set()
     pending = []
     t0 = time.perf_counter()
-    for batch in batches:
-        dev = put_fn(batch)
+    for dev in prefetch_to_device(batches, put_fn, depth=prefetch):
         shapes.add(tuple(dev["image"].shape))
         state, metrics = train_step(state, dev)
         pending.append(metrics)
@@ -94,10 +100,11 @@ def train_one_epoch(train_step: Callable, state, batches: Iterable, *,
 
 def evaluate(eval_step: Callable, model, batches: Iterable, *,
              put_fn: Callable, dataset_size: int,
-             check_every: int = 4) -> dict:
+             check_every: int = 4, prefetch: int = 2) -> dict:
     """Dataset MAE and (paper-style) RMSE: ``mae = sum|et - gt| / N`` over
     the true dataset size N; returns ``{"mae", "mse", "num_images",
-    "batches"}``."""
+    "batches"}``.  ``prefetch``: batches put ahead, as in
+    ``train_one_epoch``."""
     abs_sum = sq_sum = n_seen = 0.0
     n_batches = 0
     pending = []
@@ -111,8 +118,8 @@ def evaluate(eval_step: Callable, model, batches: Iterable, *,
             n_seen += n
         pending.clear()
 
-    for batch in batches:
-        pending.append(eval_step(model, put_fn(batch)))
+    for dev in prefetch_to_device(batches, put_fn, depth=prefetch):
+        pending.append(eval_step(model, dev))
         n_batches += 1
         if len(pending) >= max(check_every, 1):
             flush()

@@ -16,11 +16,11 @@ from __future__ import annotations
 
 from typing import Callable, Dict
 
-import numpy as np
 import torch
 
 from can_tpu_torch.data.batching import Batch
 from can_tpu_torch.data.dataset import IMAGENET_MEAN, IMAGENET_STD
+from can_tpu_torch.data.prefetch import batch_tensors
 from can_tpu_torch.train.loss import density_counts, masked_mse_sum
 
 
@@ -46,8 +46,7 @@ def normalize_on_device(image: torch.Tensor,
 
 def batch_to_device(batch: Batch, device) -> Dict[str, torch.Tensor]:
     """A host ``Batch`` -> the step's dict of tensors on ``device``."""
-    return {k: torch.from_numpy(np.ascontiguousarray(getattr(batch, k))).to(device)
-            for k in ("image", "dmap", "pixel_mask", "sample_mask")}
+    return {k: t.to(device) for k, t in batch_tensors(batch).items()}
 
 
 class NonFiniteLossError(RuntimeError):

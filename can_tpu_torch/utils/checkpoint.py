@@ -196,6 +196,16 @@ class CheckpointManager:
         state.step = int(payload["step"])
         return state
 
+    def model_state_dict(self, epoch: int) -> dict:
+        """The model's state dict of checkpoint ``epoch``, on the CPU (the
+        eval and serve CLIs need no optimizer)."""
+        path = os.path.join(self.directory, str(epoch), STATE_NAME)
+        if not os.path.isfile(path):
+            raise FileNotFoundError(f"no checkpoint {epoch} under {self.directory}")
+        payload = self._with_retries("restore", lambda: torch.load(
+            path, map_location="cpu", weights_only=True))
+        return payload["model"]
+
     def latest_epoch(self) -> Optional[int]:
         epochs = _epochs(self.directory)
         return epochs[-1] if epochs else None

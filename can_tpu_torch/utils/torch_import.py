@@ -157,3 +157,49 @@ def load_params_npz(path: str) -> Dict[str, torch.Tensor]:
             "output": {"w": z["output.w"], "b": z["output.b"]},
         }
     return state_dict_from_jax_params(params)
+
+
+def export_state_dict(state_dict: Mapping, *, ddp_prefix: bool = False
+                      ) -> Dict[str, np.ndarray]:
+    """The port's plain-model state dict -> reference-layout numpy arrays
+    in registration order (set ``ddp_prefix`` for the DDP-saved form).
+    A BN model is refused: the reference layout has no BatchNorm."""
+    sd = check_state_dict(state_dict)
+    if is_batch_norm_layout(sd):
+        raise ValueError("reference layout has no BatchNorm; "
+                         "cannot export a --syncBN model")
+    out = {k: v.numpy().copy() for k, v in sd.items()}
+    if ddp_prefix:
+        out = {f"module.{k}": v for k, v in out.items()}
+    return out
+
+
+def save_torch_checkpoint(state_dict: Mapping, path: str, *,
+                          ddp_prefix: bool = False) -> None:
+    """``torch.save`` a reference-layout checkpoint of a plain model."""
+    torch.save({k: torch.from_numpy(v) for k, v in
+                export_state_dict(state_dict, ddp_prefix=ddp_prefix).items()},
+               path)
+
+
+def save_params_npz(state_dict: Mapping, path: str) -> None:
+    """Write a plain model as the JAX package's ``save_params_npz`` file
+    (keys ``frontend.{i}.w`` HWIO, ``context.s{s}.ave`` (Cin, Cout), ...);
+    the inverse of ``load_params_npz``."""
+    sd = export_state_dict(state_dict)
+
+    def hwio(w):  # OIHW -> HWIO
+        return np.ascontiguousarray(np.transpose(w, (2, 3, 1, 0)))
+
+    flat = {}
+    for group, seq in (("frontend", FRONTEND_SEQ_IDX), ("backend", BACKEND_SEQ_IDX)):
+        for i, k in enumerate(seq):
+            flat[f"{group}.{i}.w"] = hwio(sd[f"{group}.{k}.weight"])
+            flat[f"{group}.{i}.b"] = sd[f"{group}.{k}.bias"]
+    for s in CONTEXT_SCALES:
+        # (Cout, Cin, 1, 1) conv weight -> (Cin, Cout) matmul matrix
+        flat[f"context.s{s}.ave"] = np.ascontiguousarray(sd[f"conv{s}_1.weight"][:, :, 0, 0].T)
+        flat[f"context.s{s}.weight"] = np.ascontiguousarray(sd[f"conv{s}_2.weight"][:, :, 0, 0].T)
+    flat["output.w"] = hwio(sd["output_layer.weight"])
+    flat["output.b"] = sd["output_layer.bias"]
+    np.savez(path, **flat)

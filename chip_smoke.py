@@ -50,7 +50,8 @@ Phases (any failure exits non-zero; nothing is printed as a result then):
 4. training — a synthetic PNG dataset (20 train items mixed from 576x768,
               560x744 and 480x640, 8 test items) is trained by the port's
               CLI path (``cli.train.train``: --syncBN --bn-impl kernel
-              --batch-size 8 --pad-multiple 64, one epoch of 3 steps with
+              --batch-size 8 --pad-multiple 64 --no-remnant-batches, one
+              epoch of 3 steps with
               bucket padding and fill slots, eval, checkpoint) in f32 and
               in bf16; the BN forward and backward kernels must each
               launch 16 times per step and the context kernel once per
@@ -65,7 +66,32 @@ Phases (any failure exits non-zero; nothing is printed as a result then):
               idle share of that step: the share of the span from its first
               to its last device activity in which no kernel, copy or
               memset ran);
-5. report   — the card's name and power limit (nvidia-smi's own line), a
+5. auto     — the train CLI at its defaults (``--pad-multiple auto``,
+              ``--max-buckets 24``) on a wild synthetic set (40 train and
+              12 test items over 35 sizes from 448x576 to 576x768: a
+              ladder), one whole epoch, f32 and bf16: the BN kernels
+              launch 16 times per step of the planned schedule, the
+              context kernel once per step and per eval batch;
+6. eval     — ``cli.test`` on that run's checkpoint with its batching,
+              f32 and bf16: MAE and MSE equal to the train CLI's last eval
+              within 1e-6 relative, one context launch per eval batch (and
+              one for ``--show-index 0``, whose three PNGs ``read_png``
+              reads back at their shapes); one eval epoch timed at
+              prefetch depth 0 and 2 (reported);
+7. serve    — ``cli.serve`` from that ``--checkpoint-dir`` with
+              ``--syncBN``, the bucket at test image 0's snapped shape:
+              the count equals the sum of phase 6's density map, f32
+              within 1e-5, bf16 within 2e-2;
+8. planner  — the numbers behind ``cli/common.py``'s constants: the BN
+              train step's peak memory at (4, 576, 768) and (8, 576, 768),
+              f32 and bf16, fitted as fixed bytes + bytes per pixel and
+              checked at (6, 768, 1024); its Mpx/s; one launch's cost by
+              ``measure_launch_cost_mpx``; the ``max_launch_pixels`` that
+              results, which must agree with this run's fit within 10%
+              (stale constants fail), admit every launch phase 5 trains,
+              and, in f32, let a step at 95% of it run; a step at 115% is
+              tried and its outcome printed;
+9. report   — the card's name and power limit (nvidia-smi's own line), a
               ``kernels`` JSON line,
               and last the result line ``{"ok": true, "device": {...}}``.
 
@@ -879,6 +905,9 @@ def train_cli(root: Path, work: Path, bf16: bool) -> dict:
     ckpt = work / f"ckpt_{tag}"
     argv = ["--data_root", str(root), "--syncBN", "--bn-impl", "kernel",
             "--batch-size", str(TRAIN_BATCH), "--pad-multiple", str(TRAIN_PAD),
+            # straggler groups padded to the batch: the fill slots that
+            # check_schedule asks for
+            "--no-remnant-batches",
             "--epochs", "1", "--max-steps-per-epoch", str(TRAIN_STEPS),
             "--lr", "1e-6", "--seed", str(SEED), "--checkpoint-dir", str(ckpt)]
     args = cli.parse_args(argv + (["--bf16"] if bf16 else []))
@@ -1201,6 +1230,322 @@ def phase_train(work: Path) -> dict:
             for k in ("bn", "bn_backward", "context")}
 
 
+# the planner's measurement: BN-model train steps at two batch shapes fit
+# the card's peak memory as fixed + bytes per pixel; a third shape checks
+# the fit; the constants written into can_tpu_torch/cli/common.py must
+# agree with this run's fit within PLAN_FIT_RTOL
+PLAN_FIT_SHAPES = ((4, 576, 768), (8, 576, 768))
+PLAN_CHECK_SHAPE = (6, 768, 1024)
+PLAN_FIT_RTOL = 0.10
+# the train CLI at its defaults (--pad-multiple auto, --max-buckets 24) on
+# a wild synthetic set: 35 sizes around 576x768, more distinct shapes than
+# the budget, so the planner builds a ladder
+AUTO_SIZES = tuple((h, w) for h in range(448, 577, 32) for w in range(576, 769, 32))
+AUTO_TRAIN_ITEMS, AUTO_TEST_ITEMS = 40, 12
+# [eval] against the train CLI's own last eval of the same checkpoint
+EVAL_RTOL = 1e-6
+# served count of test image 0 against the sum of [eval]'s density map
+SERVE_CKPT_RTOL = {"f32": 1e-5, "bf16": 2e-2}
+
+
+def synthetic_batch(b: int, h: int, w: int):
+    """A device batch of normalised noise at (b, h, w): every slot real,
+    no padding (the fit's pixels are all the batch's)."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    return {"image": torch.randn((b, h, w, 3), generator=g, device="cuda"),
+            "dmap": torch.rand((b, h // 8, w // 8, 1), generator=g, device="cuda"),
+            "pixel_mask": torch.ones((b, h // 8, w // 8, 1), device="cuda"),
+            "sample_mask": torch.ones((b,), device="cuda")}
+
+
+def train_step_cost(shape, bf16: bool):
+    """(peak bytes allocated, median ms) of a warm BN-model train step with
+    the kernels at ``shape``: weights, gradients and momentum included."""
+    import torch
+
+    from can_tpu_torch.ops import bn_moments as bm
+    from can_tpu_torch.train import make_train_step
+
+    state = _state()
+    batch = synthetic_batch(*shape)
+    step = make_train_step(compute_dtype=torch.bfloat16 if bf16 else None,
+                           bn_ops=bm.make_bn_ops("kernel"))
+    step(state, batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = time_ms(lambda: step(state, batch), reps=3)
+    peak = torch.cuda.max_memory_allocated()
+    del state, batch
+    torch.cuda.empty_cache()
+    return peak, ms
+
+
+def fits_on_card(shape, bf16: bool) -> bool:
+    """Does one train step at ``shape`` run, or run out of device memory?"""
+    import torch
+
+    try:
+        train_step_cost(shape, bf16)
+        return True
+    except torch.cuda.OutOfMemoryError:
+        torch.cuda.empty_cache()
+        return False
+
+
+def phase_planner(root: Path) -> dict:
+    """The card's numbers behind the planner's constants: the BN train
+    step's peak memory at two batch shapes (fixed part and bytes per
+    pixel, f32 and bf16), checked at a third; its rate in Mpx/s; one
+    launch's cost by ``measure_launch_cost_mpx``; the per-launch cap that
+    ``max_launch_pixels`` gives, which must admit every launch the auto
+    train phase plans; and, in f32, a step at 95% of the cap (must run)
+    and at 115% (the cap's reason: it should not)."""
+    import torch
+
+    from can_tpu_torch.cli import common
+    from can_tpu_torch.data import CrowdDataset, ShardedBatcher
+
+    total = torch.cuda.mem_get_info()[1]
+    caps = {}
+    for tag in ("f32", "bf16"):
+        bf16 = tag == "bf16"
+        (p1, t1), (p2, t2) = (train_step_cost(s, bf16) for s in PLAN_FIT_SHAPES)
+        px1, px2 = (b * h * w for b, h, w in PLAN_FIT_SHAPES)
+        per_px = (p2 - p1) / (px2 - px1)
+        fixed = p2 - per_px * px2
+        ms_per_mpx = (t2 - t1) / ((px2 - px1) / 1e6)
+        rate = px2 / 1e6 / (t2 / 1e3)
+        pc, tc = train_step_cost(PLAN_CHECK_SHAPE, bf16)
+        pxc = PLAN_CHECK_SHAPE[0] * PLAN_CHECK_SHAPE[1] * PLAN_CHECK_SHAPE[2]
+        predicted = fixed + per_px * pxc
+        cap_fit = (0.92 * total - fixed) / per_px
+        cap = common.max_launch_pixels(bf16=bf16, device="cuda")
+        caps[tag] = cap
+        log(f"[planner] {tag} BN train step peak memory: {p1 / 2 ** 30:.3f} GiB "
+            f"at {PLAN_FIT_SHAPES[0]}, {p2 / 2 ** 30:.3f} GiB at "
+            f"{PLAN_FIT_SHAPES[1]} -> fixed {fixed:.0f} B + {per_px:.1f} B/px; "
+            f"at {PLAN_CHECK_SHAPE} {pc / 2 ** 30:.3f} GiB, the fit says "
+            f"{predicted / 2 ** 30:.3f} GiB ({100 * (predicted / pc - 1):+.1f}%)")
+        log(f"[planner] {tag} step time {t1:.2f} / {t2:.2f} / {tc:.2f} ms at "
+            f"the three shapes: {rate:.2f} Mpx/s at {PLAN_FIT_SHAPES[1]}, "
+            f"{ms_per_mpx:.3f} ms/Mpx + {t2 - ms_per_mpx * px2 / 1e6:.2f} ms "
+            f"fixed per step by the two-shape fit")
+        log(f"[planner] {tag} max_launch_pixels: {cap / 1e6:.2f} Mpx from "
+            f"cli/common.py's constants (fixed {common.TRAIN_FIXED_BYTES[tag]:.0f} "
+            f"B, {common.TRAIN_BYTES_PER_PX[tag]:.1f} B/px), {cap_fit / 1e6:.2f} "
+            f"Mpx from this run's fit, at 0.92 of {total / 2 ** 30:.2f} GiB")
+        if abs(predicted / pc - 1) > PLAN_FIT_RTOL:
+            fail(f"{tag}: the memory fit misses {PLAN_CHECK_SHAPE} by more than "
+                 f"{PLAN_FIT_RTOL:.0%}")
+        if abs(cap / cap_fit - 1) > PLAN_FIT_RTOL:
+            fail(f"{tag}: cli/common.py's cap {cap / 1e6:.2f} Mpx is off this "
+                 f"run's {cap_fit / 1e6:.2f} Mpx by more than {PLAN_FIT_RTOL:.0%}: "
+                 f"the constants are stale")
+    probe = common.measure_launch_cost_mpx("cuda")
+    log(f"[planner] measure_launch_cost_mpx: {probe:.6f} Mpx "
+        f"({probe / common.MODEL_MPX_PER_S * 1e3:.4f} ms per synchronised launch "
+        f"at {common.MODEL_MPX_PER_S} Mpx/s); cli/common.py's default "
+        f"--launch-cost-mpx {common.DEFAULT_LAUNCH_COST_MPX}")
+    # the cap against what the auto phase will train, and against the card
+    ds = CrowdDataset(str(root / "train_data" / "images"),
+                      str(root / "train_data" / "ground_truth"))
+    for tag, cap in caps.items():
+        sched = ShardedBatcher(ds, TRAIN_BATCH, seed=SEED, pad_multiple="auto",
+                               max_buckets=24, remnant_sizes=True,
+                               launch_cost_px=common.DEFAULT_LAUNCH_COST_MPX * 1e6,
+                               max_launch_px=cap).global_schedule(0)
+        biggest = max(len(g) * k[0] * k[1] for k, g in sched)
+        if biggest > cap:
+            fail(f"{tag}: the cap {cap / 1e6:.2f} Mpx refuses a launch the "
+                 f"smoke trains ({biggest / 1e6:.2f} Mpx)")
+        log(f"[planner] {tag}: the cap admits every launch the auto phase "
+            f"trains (largest {biggest / 1e6:.2f} Mpx)")
+    w = 1536
+    for frac in (0.95, 1.15):
+        b = 4
+        h = int(frac * caps["f32"] / (b * w)) // 8 * 8
+        ran = fits_on_card((b, h, w), bf16=False)
+        log(f"[planner] f32 step at {(b, h, w)} = {b * h * w / 1e6:.2f} Mpx "
+            f"({100 * b * h * w / caps['f32']:.0f}% of the cap): "
+            f"{'ran' if ran else 'out of device memory'}")
+        if frac < 1 and not ran:
+            fail("a launch the cap admits ran out of device memory")
+    return {"caps": caps, "probe_mpx": probe}
+
+
+def train_auto(root: Path, work: Path, bf16: bool) -> dict:
+    """The train CLI at its default --pad-multiple auto, one whole epoch;
+    the BN kernels must launch 16 times per step of the planned schedule,
+    the context kernel once per step and per eval batch."""
+    import math
+
+    from can_tpu_torch.cli import train as cli
+    from can_tpu_torch.ops import cuda_bn as cb
+    from can_tpu_torch.ops import cuda_context as cc
+
+    tag = "bf16" if bf16 else "f32"
+    ckpt = work / f"ckpt_auto_{tag}"
+    argv = ["--data_root", str(root), "--syncBN", "--bn-impl", "kernel",
+            "--batch-size", str(TRAIN_BATCH), "--epochs", "1", "--lr", "1e-6",
+            "--seed", str(SEED), "--checkpoint-dir", str(ckpt)]
+    args = cli.parse_args(argv + (["--bf16"] if bf16 else []))
+    if (args.pad_multiple, args.max_buckets) != ("auto", 24):
+        fail(f"the train CLI's defaults are --pad-multiple "
+             f"{args.pad_multiple!r} --max-buckets {args.max_buckets}")
+    cb.reset_launches()
+    cc.reset_launches()  # the main path starts here
+    summary = cli.train(args)
+    launches = {"bn": cb.LAUNCHES, "bn_backward": cb.BACKWARD_LAUNCHES,
+                "context": cc.LAUNCHES}  # ... and ends here
+    row = summary["epochs"][-1]
+    steps = summary["schedule_steps"]
+    if summary["steps"] != steps or not steps:
+        fail(f"train auto {tag}: ran {summary['steps']} steps of a planned {steps}")
+    if not (math.isfinite(row["train_loss"]) and math.isfinite(row["mae"])):
+        fail(f"train auto {tag}: loss {row['train_loss']!r}, MAE {row['mae']!r}")
+    for key in ("bn", "bn_backward"):
+        if launches[key] != BN_LAYERS * steps:
+            fail(f"train auto {tag}: {key} launched {launches[key]} times, want "
+                 f"{BN_LAYERS} x {steps} planned steps")
+    if launches["context"] != steps + summary["eval_batches"]:
+        fail(f"train auto {tag}: context_fused launched {launches['context']} "
+             f"times, want {steps} steps + {summary['eval_batches']} eval batches")
+    log(f"[train] auto {tag}: {steps} steps (the planned schedule), loss "
+        f"{row['train_loss']:.6g}, eval MAE {row['mae']:.9g} MSE "
+        f"{row['mse']:.9g} over {summary['eval_batches']} batches; launches "
+        f"bn_moments {launches['bn']} and bn_moments_backward "
+        f"{launches['bn_backward']} (= {BN_LAYERS} x steps), context_fused "
+        f"{launches['context']} (= steps + eval batches)")
+    return {**summary, "launches": launches, "ckpt": ckpt,
+            "argv": ["--batch-size", str(TRAIN_BATCH), "--pad-multiple", "auto"]}
+
+
+def eval_cli(root: Path, work: Path, run: dict, bf16: bool) -> dict:
+    """The eval CLI on the auto run's checkpoint with the train CLI's
+    batching: MAE and MSE equal to the train CLI's last eval, one context
+    launch per eval batch (and one for --show-index), three readable
+    PNGs; then the eval epoch timed at prefetch depth 0 and 2."""
+    from can_tpu_torch.cli import test as cli
+    from can_tpu_torch.data import CrowdDataset
+    from can_tpu_torch.data.imageio import read_png
+    from can_tpu_torch.ops import cuda_context as cc
+
+    tag = "bf16" if bf16 else "f32"
+    argv = (["--data_root", str(root), "--checkpoint-dir", str(run["ckpt"]),
+             "--syncBN"] + run["argv"] + (["--bf16"] if bf16 else []))
+    cc.reset_launches()  # the main path starts here
+    out = cli.evaluate_checkpoint(cli.parse_args(
+        argv + ["--show-index", "0", "--out-dir", str(work / f"eval_{tag}")]))
+    launches = cc.LAUNCHES  # ... and ends here
+    last = run["epochs"][-1]
+    for k in ("mae", "mse"):
+        rel = abs(out[k] - last[k]) / abs(last[k])
+        if rel > EVAL_RTOL:
+            fail(f"eval {tag}: {k} {out[k]!r} vs the train CLI's {last[k]!r} "
+                 f"(rel {rel:.2e} > {EVAL_RTOL})")
+    if launches != out["batches"] + 1:
+        fail(f"eval {tag}: context_fused launched {launches} times, want "
+             f"{out['batches']} eval batches + 1 (--show-index)")
+    ds = CrowdDataset(str(root / "test_data" / "images"),
+                      str(root / "test_data" / "ground_truth"), phase="test")
+    h, w = ds.snapped_shape(0)
+    want = [(h, w, 3), (h // 8, w // 8, 3), (h // 8, w // 8, 3)]
+    got = [read_png(p).shape for p in out["viz_paths"]]
+    if got != want:
+        fail(f"eval {tag}: --show-index PNGs {got}, want {want}")
+    log(f"[eval] {tag}: checkpoint epoch {out['epoch']}, MAE {out['mae']:.9g} "
+        f"MSE {out['mse']:.9g} over {out['num_images']} images in "
+        f"{out['batches']} batches (the train CLI's last eval: MAE "
+        f"{last['mae']:.9g} MSE {last['mse']:.9g}, rtol {EVAL_RTOL}); "
+        f"context_fused {launches} launches (= batches + 1); PNGs {got}")
+    times = {0: [], 2: []}
+    for depth in (0, 2, 0, 2):
+        times[depth].append(cli.evaluate_checkpoint(
+            cli.parse_args(argv), prefetch=depth)["eval_s"] * 1e3)
+    log(f"[eval] {tag} eval epoch wall time: prefetch depth 0 "
+        f"{' / '.join(f'{t:.1f}' for t in times[0])} ms, depth 2 "
+        f"{' / '.join(f'{t:.1f}' for t in times[2])} ms (reported, not gated)")
+    return {"density": out["density"], "launches": launches}
+
+
+def serve_checkpoint(root: Path, run: dict, density, serve_dtype: str) -> int:
+    """The serve CLI from the auto run's checkpoint dir with --syncBN, the
+    bucket at test image 0's snapped shape (no padding): its count must
+    equal the sum of [eval]'s density map for that image.  Returns the
+    context launches of the serving (the batches it ran)."""
+    from can_tpu_torch.cli import serve as cli
+    from can_tpu_torch.data.imageio import read_png
+    from can_tpu_torch.ops import cuda_context as cc
+    from can_tpu_torch.serve import serve_http
+
+    img = read_png(str(root / "test_data" / "images" / "IMG_0000.png"))
+    h, w = img.shape[0] // 8 * 8, img.shape[1] // 8 * 8
+    args = cli.parse_args(["--checkpoint-dir", str(run["ckpt"]), "--syncBN",
+                           "--bucket-shapes", f"{h}x{w}", "--max-batch", "1",
+                           "--serve-dtype", serve_dtype, "--port", "0",
+                           "--deadline-ms", "120000"])
+    cc.reset_launches()  # the main path starts here
+    service = cli.build_service(args)
+    with service:
+        httpd = serve_http(service, host="127.0.0.1", port=0)
+        th = threading.Thread(target=httpd.serve_forever, daemon=True)
+        th.start()
+        try:
+            res = _post(httpd.server_address[1], img, "raw=0")
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+    launches = cc.LAUNCHES  # ... and ends here
+    batches = service.engine.compile_count + service.stats()["batches"]
+    service.engine.release_buffers()
+    want = float(np.asarray(density, np.float64).sum())
+    rel = abs(res["count"] - want) / abs(want)
+    tol = SERVE_CKPT_RTOL[serve_dtype]
+    if not np.isfinite(res["count"]) or rel > tol:
+        fail(f"serve checkpoint {serve_dtype}: count {res['count']!r} vs the "
+             f"eval density sum {want!r} (rel {rel:.2e} > {tol})")
+    if launches != batches:
+        fail(f"serve checkpoint {serve_dtype}: context_fused launched {launches} "
+             f"times for {batches} batches")
+    log(f"[serve] checkpoint {serve_dtype}: --checkpoint-dir --syncBN, bucket "
+        f"{h}x{w}: count {res['count']:.9g} vs [eval]'s density sum {want:.9g} "
+        f"(rel {rel:.2e}, tolerance {tol}); context_fused {launches} launches "
+        f"(= batches, warmup included)")
+    return launches
+
+
+def make_auto_data(work: Path) -> Path:
+    """The wild synthetic set of the auto phase (the port's writer)."""
+    from can_tpu_torch.data import make_synthetic_dataset
+
+    root = work / "auto"
+    make_synthetic_dataset(str(root / "train_data"), AUTO_TRAIN_ITEMS,
+                           sizes=AUTO_SIZES, seed=SEED)
+    make_synthetic_dataset(str(root / "test_data"), AUTO_TEST_ITEMS,
+                           sizes=AUTO_SIZES, seed=SEED + 1)
+    return root
+
+
+def phase_slice5(work: Path) -> dict:
+    """[train] auto, [eval] and [serve] checkpoint on the wild synthetic
+    set, then [planner]; returns the kernels' launches in their main
+    paths."""
+    root = make_auto_data(work)
+    context = 0
+    bn = {"bn": 0, "bn_backward": 0}
+    for tag in ("f32", "bf16"):
+        bf16 = tag == "bf16"
+        run = train_auto(root, work, bf16)
+        ev = eval_cli(root, work, run, bf16)
+        context += (run["launches"]["context"] + ev["launches"]
+                    + serve_checkpoint(root, run, ev["density"], tag))
+        for k in bn:
+            bn[k] += run["launches"][k]
+    phase_planner(root)
+    return {"context": context, **bn}
+
 def main(argv) -> int:
     import torch
 
@@ -1268,11 +1613,13 @@ def main(argv) -> int:
     del runs
 
     train_launches = phase_train(work)  # resets and reads the counts
+    slice5 = phase_slice5(work)  # resets and reads the counts per path
 
     kernels = [{"name": cc.KERNEL, "route": "cuda",
                 "source": "can_tpu_torch/csrc/context_fused.cu",
                 "replaces": "can_tpu/ops/pallas_context.py:143",
-                "launches": launches + train_launches["context"],
+                "launches": (launches + train_launches["context"]
+                             + slice5["context"]),
                 "max_abs_err": row["max_abs_err"],
                 "ms": row["ms"], "plain_ms": row["plain_ms"],
                 "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
@@ -1280,17 +1627,20 @@ def main(argv) -> int:
                {"name": cb.KERNEL, "route": "cuda",
                 "source": "can_tpu_torch/csrc/bn_moments.cu",
                 "replaces": "can_tpu/ops/pallas_bn.py:104",
-                "launches": train_launches["bn"], **bn["forward"]},
+                "launches": train_launches["bn"] + slice5["bn"], **bn["forward"]},
                {"name": cb.BACKWARD_KERNEL, "route": "cuda",
                 "source": "can_tpu_torch/csrc/bn_moments.cu",
                 "replaces": "can_tpu/ops/pallas_bn.py:143",
-                "launches": train_launches["bn_backward"], **bn["backward"]}]
+                "launches": train_launches["bn_backward"] + slice5["bn_backward"],
+                **bn["backward"]}]
     log(f"[smoke] done in {time.perf_counter() - t_start:.1f}s; kernels timed "
         f"at context (8, 96, 128, 512) f32 (bf16: {row['bf16_ms']:.3f} ms), "
         f"bn_moments and bn_moments_backward {BN_STEP_SHAPES[0][0]} f32; launches: "
         f"context_fused {launches} serving + {train_launches['context']} "
-        f"training, bn_moments {train_launches['bn']} and "
-        f"bn_moments_backward {train_launches['bn_backward']} training")
+        f"training + {slice5['context']} auto training, eval and serving "
+        f"from a checkpoint; bn_moments {train_launches['bn']} + "
+        f"{slice5['bn']} and bn_moments_backward "
+        f"{train_launches['bn_backward']} + {slice5['bn_backward']} training")
     log(card)  # the card's name and power limit, as nvidia-smi gives them
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -39,7 +39,13 @@ def _port_modules():
 def test_port_modules_are_found():
     mods = _port_modules()
     for m in ("can_tpu_torch.ops.cuda_context", "can_tpu_torch.serve.service",
-              "can_tpu_torch.cli.serve", "can_tpu_torch.models.cannet"):
+              "can_tpu_torch.cli.serve", "can_tpu_torch.models.cannet",
+              # the evaluation slice: the import test and the source scan
+              # below walk these too
+              "can_tpu_torch.cli.test", "can_tpu_torch.cli.common",
+              "can_tpu_torch.data.planner", "can_tpu_torch.data.prepared",
+              "can_tpu_torch.data.prefetch", "can_tpu_torch.utils.viz",
+              "can_tpu_torch.utils.logging"):
         assert m in mods
     assert (PKG / "csrc" / "context_fused.cu").is_file()
 
@@ -101,6 +107,18 @@ def test_resolve_device_cpu_only_when_asked():
     for platform in ("default", "gpu"):
         with pytest.raises(NoCudaDeviceError, match="CUDA"):
             resolve_device(platform)
+
+
+def test_no_tpu_constant_in_the_port():
+    """The planner's memory cap and launch price are the card's: none of
+    the JAX package's TPU constants (1100/2200 B/px, 42 Mpx/s, its
+    device-kind tables) is in the port."""
+    files = sorted(PKG.rglob("*.py"))
+    for f in files:
+        src = f.read_text()
+        for pat in ("1100.0", "2200.0", "42.0", "_HBM_BY_DEVICE_KIND",
+                    "_PEAK_BY_DEVICE_KIND", "DevicePeaks"):
+            assert pat not in src, (str(f.relative_to(ROOT)), pat)
 
 
 def test_serve_cli_without_a_card_exits_nonzero(tmp_path):

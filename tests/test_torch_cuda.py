@@ -11,8 +11,11 @@ tolerances chip_smoke.py states — context: f32 rtol/atol 1e-5, bf16
 2e-2 / 1e-2; BN moment sums: s1 and s2 within 1e-5 of sum|y m| and
 sum y^2 m per channel (only the summation order differs: bf16 is widened
 exactly), s0 exact; BN backward dy: f32 rtol 1e-6, bf16 one bf16 rounding.
+Device prefetch (pinned memory, side stream) is held against a
+synchronous copy, and eval at prefetch depth 2 against depth 0, exactly.
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -376,3 +379,64 @@ def test_model_forward_goes_through_the_kernel(cuda, dtype):
     torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
                                atol=rtol * scale)
     assert float((flat.float() - want.float()).abs().max()) > 5 * rtol * scale
+
+
+def _host_batches(n, seed=0):
+    from can_tpu_torch.data import pad_batch
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(n):
+        h, w = (int(rng.integers(8, 65)) * 8 for _ in range(2))
+        b = int(rng.integers(1, 5))
+        items = [(rng.standard_normal((h, w, 3)).astype(np.float32),
+                  rng.uniform(0, 1, (h // 8, w // 8, 1)).astype(np.float32))
+                 for _ in range(b)]
+        out.append(pad_batch(items, (h, w), b + 1, [True] * b, 8))
+    return out
+
+
+def test_prefetch_on_a_side_stream_equals_a_synchronous_copy(cuda):
+    """50 batches of changing shapes through pinned memory and a side
+    stream, two ahead, while the consumer keeps the card busy (a long
+    product queued before each read) and churns the caching allocator
+    (every freed block handed out again at once and overwritten): each
+    batch must arrive equal to a plain synchronous copy."""
+    from can_tpu_torch.data.prefetch import DevicePut, prefetch_to_device
+    from can_tpu_torch.train.steps import batch_to_device
+
+    host = _host_batches(50)
+    a = torch.randn((2048, 2048), device=cuda)
+    seen = 0
+    for i, dev in enumerate(prefetch_to_device(host, DevicePut(cuda), depth=2)):
+        busy = a @ a  # queued ahead of the reads on the consumer stream
+        got = {k: t.clone() for k, t in dev.items()}
+        sizes = [t.numel() for t in dev.values()]
+        del dev
+        junk = [torch.full((n,), float("nan"), device=cuda) for n in sizes]
+        want = batch_to_device(host[i], cuda)
+        for k in want:
+            assert torch.equal(got[k], want[k]), (i, k)
+        del junk, busy
+        seen += 1
+    torch.cuda.synchronize()
+    assert seen == 50
+
+
+def test_eval_mae_is_the_same_at_prefetch_depth_0_and_2(cuda, tmp_path):
+    from can_tpu_torch.cli import test as eval_cli
+    from can_tpu_torch.data import make_synthetic_dataset
+    from can_tpu_torch.utils.torch_import import save_params_npz
+
+    make_synthetic_dataset(str(tmp_path / "test_data"), 12,
+                           sizes=((128, 160), (96, 128), (120, 88)), seed=4)
+    npz = str(tmp_path / "he.npz")
+    save_params_npz({k: torch.from_numpy(v) for k, v in
+                     random_state_dict(0, he=True).items()}, npz)
+    args = ["--data_root", str(tmp_path), "--params-npz", npz,
+            "--batch-size", "4", "--pad-multiple", "auto"]
+    outs = [eval_cli.evaluate_checkpoint(eval_cli.parse_args(list(args)),
+                                         prefetch=d) for d in (0, 2, 0, 2)]
+    assert outs[0]["mae"] > 1.0
+    for o in outs[1:]:
+        assert (o["mae"], o["mse"]) == (outs[0]["mae"], outs[0]["mse"])

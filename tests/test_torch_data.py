@@ -16,6 +16,7 @@ import zlib
 
 import numpy as np
 import pytest
+import torch
 from PIL import Image
 
 from can_tpu.data import CrowdDataset as JaxCrowdDataset
@@ -244,10 +245,90 @@ def test_batcher_schedule_matches_jax(synth, pad, seed):
 
 
 def test_batcher_refuses_planner_options(synth):
+    """The planner's options are taken now (tests/test_torch_planner.py
+    holds them against JAX); what cannot work is still refused."""
     ds = CrowdDataset(*_roots(synth, "port"))
-    with pytest.raises(ValueError, match="planner slice"):
-        ShardedBatcher(ds, 2, pad_multiple="auto")
-    with pytest.raises(ValueError, match="planner slice"):
-        ShardedBatcher(ds, 2, remnant_sizes=True)
+    assert ShardedBatcher(ds, 2, pad_multiple="auto").describe_buckets() \
+        == "exact shapes"  # 4 shapes, within the default budget of 8
+    assert ShardedBatcher(ds, 2, remnant_sizes=True).batches_per_epoch(0) > 0
+    with pytest.raises(ValueError, match="batch_quantum"):
+        ShardedBatcher(ds, 3, remnant_sizes=True, batch_quantum=2)
     with pytest.raises(ValueError, match="multiples of the density"):
         ShardedBatcher(ds, 2, pad_multiple=12)
+
+
+# -- prefetch -------------------------------------------------------------
+from can_tpu_torch.data import PrefetchPutError, prefetch_to_device  # noqa: E402
+from can_tpu_torch.data.prefetch import DevicePut  # noqa: E402
+
+
+@pytest.mark.parametrize("depth", [0, 1, 2, 5])
+def test_prefetch_keeps_order(depth):
+    out = list(prefetch_to_device(range(7), lambda x: x * 10, depth=depth))
+    assert out == [x * 10 for x in range(7)]
+    assert list(prefetch_to_device([], lambda x: x, depth=depth)) == []
+
+
+def test_prefetch_depth_0_is_synchronous_and_propagates_as_is():
+    loaded = []
+
+    def put(x):
+        loaded.append(x)
+        if x == 2:
+            raise KeyError("boom")
+        return x
+
+    it = prefetch_to_device(range(5), put, depth=0)
+    assert next(it) == 0 and loaded == [0]  # nothing loaded ahead
+    assert next(it) == 1 and loaded == [0, 1]
+    with pytest.raises(KeyError):
+        next(it)
+
+
+def test_prefetch_put_error_names_the_batch():
+    def put(x):
+        if x == 3:
+            raise ValueError("bad batch")
+        return x
+
+    seen = []
+    with pytest.raises(PrefetchPutError) as e:
+        for x in prefetch_to_device(range(6), put, depth=2):
+            seen.append(x)
+    assert seen == [0, 1, 2]
+    assert e.value.batch_index == 3
+    assert isinstance(e.value.__cause__, ValueError)
+
+
+def test_prefetch_abandoned_consumer_does_not_wait_for_the_queue():
+    import threading
+    import time
+
+    gate = threading.Event()
+
+    def put(x):
+        if x >= 1:
+            gate.wait(5)
+        return x
+
+    it = prefetch_to_device(range(10), put, depth=3)
+    assert next(it) == 0
+    t0 = time.perf_counter()
+    it.close()  # the queued loads are cancelled, the running one not awaited
+    assert time.perf_counter() - t0 < 2.0
+    gate.set()
+
+
+def test_device_put_on_the_cpu_is_the_plain_conversion(synth):
+    from can_tpu_torch.train.steps import batch_to_device
+
+    batch = next(ShardedBatcher(CrowdDataset(*_roots(synth, "port")), 3,
+                                seed=0).epoch(0))
+    put = DevicePut("cpu")
+    assert put.stream is None and put.depth == 0  # synchronous on the CPU
+    got, want = put(batch), batch_to_device(batch, "cpu")
+    assert set(got) == set(want) == {"image", "dmap", "pixel_mask", "sample_mask"}
+    for k in want:
+        assert torch.equal(got[k], want[k]) and got[k].device.type == "cpu"
+    via = list(prefetch_to_device([batch, batch], put, depth=2))
+    assert len(via) == 2 and torch.equal(via[1]["image"], want["image"])

@@ -501,7 +501,7 @@ def test_http_round_trip_cpu(tmp_path, he_params, engines):
 
 @pytest.mark.parametrize("argv,match", [
     (["--serve-dtype", "int8"], "int8"),
-    (["--checkpoint-dir", "/nonexistent"], "training slice"),
+    (["--checkpoint-dir", "/nonexistent"], "checkpoint-dir is ignored"),
     (["--params-npz", "x.npz"], "OR"),
     ([], None),
 ])

@@ -331,11 +331,13 @@ def test_train_cli_trains_checkpoints_and_resumes(synth, tmp_path):
 
 def test_train_cli_refusals(synth, tmp_path, capsys):
     with pytest.raises(SystemExit):
-        cli.parse_args(["--data_root", str(synth), "--pad-multiple", "auto"])
-    assert "planner slice" in capsys.readouterr().err
+        cli.parse_args(["--data_root", str(synth), "--pad-multiple", "bogus"])
+    assert "--pad-multiple takes" in capsys.readouterr().err
     assert cli.parse_args(["--pad-multiple", "none"]).pad_multiple is None
-    assert cli.parse_args([]).pad_multiple is None
+    assert cli.parse_args([]).pad_multiple == "auto"  # the JAX default
     assert cli.parse_args([]).bn_impl == "onepass"
+    with pytest.raises(SystemExit, match="item-cache-mb"):
+        cli.train(cli.parse_args(_cli_args(synth, tmp_path, "--item-cache-mb", "-1")))
     with pytest.raises(SystemExit, match="eval-interval"):
         cli.train(cli.parse_args(_cli_args(synth, tmp_path, "--eval-interval", "0")))
     with pytest.raises(SystemExit, match="no such dataset"):
