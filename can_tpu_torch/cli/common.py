@@ -5,9 +5,12 @@ planner's memory cap and launch price (counterpart of
 The planner prices launches in pixels.  Its two device numbers are the
 card's own, measured by ``chip_smoke.py``'s ``[planner]`` phase on an
 NVIDIA H100 80GB HBM3 at a 700.00 W power limit (PERF.md): the peak
-memory of a BN-model train step, fitted as a fixed part plus bytes per
-pixel of the batch (``batch * H * W``), and the train step's rate in
-megapixels per second.  None of the JAX package's TPU constants is used.
+memory of a train step, fitted as a fixed part plus bytes per pixel of
+the batch (``batch * H * W``) for the BN and the plain model, with and
+without remat, and the train step's rate in megapixels per second.  The
+same footprints decide per launch whether to rematerialise
+(``make_remat_policy``).  None of the JAX package's TPU constants is
+used.
 """
 
 from __future__ import annotations
@@ -16,17 +19,26 @@ import argparse
 import os
 import statistics
 import time
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
-# Peak memory allocated by one BN-model train step (forward, backward,
-# SGD update; weights, momentum and gradients included) = fixed + per_px
-# * batch * H * W, fitted from (4, 576, 768) and (8, 576, 768) steps and
-# within 0.1% at (6, 768, 1024); chip_smoke.py [planner], NVIDIA H100
-# 80GB HBM3, 700.00 W.  At 0.92 of its 79.18 GiB: 14.8 Mpx f32, 18.8 bf16.
-TRAIN_FIXED_BYTES = {"f32": 321012224.0, "bf16": 339554304.0}
-TRAIN_BYTES_PER_PX = {"f32": 5254.7, "bf16": 4133.4}
+# Peak memory allocated by one train step (forward, backward, SGD update;
+# weights, momentum and gradients included) = fixed + per_px * batch * H *
+# W, by (model, remat) and dtype: (fixed bytes, bytes per pixel), each
+# fitted from (4, 576, 768) and (8, 576, 768) steps under the train CLI's
+# deterministic settings and within 0.1% at (6, 768, 1024);
+# chip_smoke.py [planner], NVIDIA H100 80GB HBM3, 700.00 W.  At 0.92 of
+# its 79.18 GiB the BN model fits 14.8 Mpx f32 / 18.9 bf16 per launch
+# without remat, 24.2 / 34.9 with.  The plain model's peak is in the
+# first stage's backward either way, so remat leaves its f32 footprint
+# as it is.
+TRAIN_FOOTPRINT = {
+    ("bn", False): {"f32": (291740160.0, 5253.6), "bf16": (310818816.0, 4132.2)},
+    ("bn", True): {"f32": (317840384.0, 3216.9), "bf16": (318743040.0, 2230.4)},
+    ("plain", False): {"f32": (323441664.0, 2443.8), "bf16": (324374528.0, 1483.8)},
+    ("plain", True): {"f32": (319509504.0, 2444.3), "bf16": (320798208.0, 785.8)},
+}
 # The BN-model train step's rate at (8, 576, 768), bf16, in Mpx/s (same
 # run; f32: 10.04): converts a launch's time into the planner's pixels.
 MODEL_MPX_PER_S = 32.21
@@ -111,18 +123,68 @@ def device_memory_bytes(device) -> Optional[int]:
 _DETECT = object()  # "read the card" as against an explicit None
 
 
+def train_footprint(*, bf16: bool, batch_norm: bool = True,
+                    remat: bool = False) -> Tuple[float, float]:
+    """``(fixed bytes, bytes per pixel)`` of one train step's peak memory
+    on the card (``TRAIN_FOOTPRINT``)."""
+    return TRAIN_FOOTPRINT[("bn" if batch_norm else "plain", bool(remat))][
+        "bf16" if bf16 else "f32"]
+
+
 def max_launch_pixels(*, bf16: bool, device=None, ceiling_frac: float = 0.92,
-                      hbm_bytes=_DETECT) -> Optional[float]:
+                      hbm_bytes=_DETECT, batch_norm: bool = True,
+                      remat: bool = False) -> Optional[float]:
     """Per-launch pixel budget (batch * H * W) for the planner's memory
     cap: ``(ceiling_frac * memory - fixed) / bytes_per_px`` of the card's
-    fitted train-step footprint.  None on the CPU (a cap there would be
+    fitted train-step footprint for this model, with remat or without
+    (a launch the cap admits only with remat gets it from
+    ``make_remat_policy``).  None on the CPU (a cap there would be
     fiction and change the schedule).  ``hbm_bytes`` overrides the card's
     total memory (tests pin it)."""
     mem = device_memory_bytes(device) if hbm_bytes is _DETECT else hbm_bytes
     if mem is None:
         return None
-    key = "bf16" if bf16 else "f32"
-    return (ceiling_frac * mem - TRAIN_FIXED_BYTES[key]) / TRAIN_BYTES_PER_PX[key]
+    fixed, per_px = train_footprint(bf16=bf16, batch_norm=batch_norm, remat=remat)
+    return (ceiling_frac * mem - fixed) / per_px
+
+
+def make_remat_policy(flag: str, *, global_batch: int, bf16: bool, device=None,
+                      batch_norm: bool = True, budget_frac: float = 0.80,
+                      hbm_bytes=_DETECT, announce: bool = False) -> Callable:
+    """Per-launch remat decision (``make_remat_policy`` of
+    can_tpu/cli/common.py:413): ``policy(hw, batch=None) -> bool``, batch
+    defaulting to ``global_batch``.
+
+    ``"on"`` / ``"off"`` decide for every launch.  ``"auto"``: remat is on
+    for a launch whose footprint without remat, by the card's fitted
+    constants (``train_footprint``), exceeds ``budget_frac`` of the card's
+    memory; off on the CPU, where no ceiling exists.  ``announce`` prints
+    a ``[remat]`` line the first time a launch shape turns it on.
+    """
+    if flag not in ("auto", "on", "off"):
+        raise ValueError(f"remat is 'auto', 'on' or 'off', got {flag!r}")
+    if flag != "auto":
+        return lambda hw, batch=None: flag == "on"
+    mem = device_memory_bytes(device) if hbm_bytes is _DETECT else hbm_bytes
+    if mem is None:
+        return lambda hw, batch=None: False
+    fixed, per_px = train_footprint(bf16=bf16, batch_norm=batch_norm)
+    budget = budget_frac * mem
+    said = set()
+
+    def policy(hw, batch=None):
+        b = batch or global_batch
+        need = fixed + per_px * b * hw[0] * hw[1]
+        on = need > budget
+        if on and announce and (b, tuple(hw)) not in said:
+            said.add((b, tuple(hw)))
+            print(f"[remat] launch {hw[0]}x{hw[1]} (batch {b}): footprint "
+                  f"{need / 2 ** 30:.2f} GiB without remat exceeds "
+                  f"{budget_frac:.0%} of {mem / 2 ** 30:.2f} GiB -> "
+                  f"rematerialising this launch")
+        return on
+
+    return policy
 
 
 def measure_launch_cost_mpx(device, *, probes: int = 30,
@@ -181,12 +243,20 @@ def resolve_num_workers(value: Optional[int]) -> int:
     return min(8, os.cpu_count() or 1)
 
 
-def print_data_line(tag: str, batcher) -> None:
-    """The ``[data]`` line of one batcher: buckets, shapes, programs and
-    the padding and schedule overheads of epoch 0."""
+def print_data_line(tag: str, batcher, remat_policy: Optional[Callable] = None) -> None:
+    """The ``[data]`` line of one batcher: buckets, shapes, programs, the
+    plan mode, the padding and schedule overheads of epoch 0 and, given a
+    remat policy, its decision per launch shape (batch x H x W)."""
+    remat = ""
+    if remat_policy is not None:
+        launches = sorted({(len(g), key) for key, g in batcher.global_schedule(0)})
+        on = [f"{b}x{h}x{w}" for b, (h, w) in launches
+              if remat_policy((h, w), batch=b)]
+        remat = (f", remat on for {len(on)} of {len(launches)} launch shapes"
+                 + (f" ({', '.join(on)})" if on else ""))
     print(f"[data] {tag}: buckets={batcher.describe_buckets()} -> "
           f"{batcher.distinct_shapes(0)} distinct batch shapes, "
           f"{batcher.program_count(0)} (shape x size) programs, "
-          f"{batcher.batches_per_epoch(0)} batches (plan=cost, padding "
-          f"overhead {batcher.padding_overhead():.1%}, schedule overhead "
-          f"{batcher.schedule_overhead(0):.1%})", flush=True)
+          f"{batcher.batches_per_epoch(0)} batches (plan={batcher.plan_mode}, "
+          f"padding overhead {batcher.padding_overhead():.1%}, schedule "
+          f"overhead {batcher.schedule_overhead(0):.1%}{remat})", flush=True)

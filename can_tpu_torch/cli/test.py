@@ -36,7 +36,13 @@ from can_tpu_torch.cli.common import (
     resolve_split_roots,
     split_prepared_spec,
 )
-from can_tpu_torch.device import PLATFORMS, NoCudaDeviceError, resolve_device, use_full_f32
+from can_tpu_torch.device import (
+    PLATFORMS,
+    NoCudaDeviceError,
+    resolve_device,
+    use_deterministic,
+    use_full_f32,
+)
 
 
 def parse_args(argv=None):
@@ -206,8 +212,10 @@ def evaluate_checkpoint(args, *, prefetch: Optional[int] = None) -> dict:
         device = resolve_device(args.platform)
     except NoCudaDeviceError as e:
         raise SystemExit(f"[eval] {e}") from None
-    if device.type == "cuda" and not args.bf16:
-        use_full_f32()
+    if device.type == "cuda":
+        use_deterministic()  # the train CLI's settings: the same eval numbers
+        if not args.bf16:
+            use_full_f32()
     compute_dtype = torch.bfloat16 if args.bf16 else None
 
     state_dict, epoch = load_params(args)

@@ -12,7 +12,11 @@ plus the best MAE) to ``--checkpoint-dir``; ``--init_checkpoint`` resumes.
 
 ``--platform default`` (or ``gpu``) trains on the CUDA device and exits
 non-zero when there is none; ``--platform cpu`` is the explicit CPU run.
-In f32 TF32 is off.  ``--pad-multiple auto`` (the default, as in the JAX
+On the card training is deterministic (``device.use_deterministic``: the
+same seed and data give the same weights bit for bit, so a resume is
+exact), and in f32 TF32 is off.  ``--remat auto`` (the default)
+recomputes the forward in the backward for launches whose footprint
+would not fit the card otherwise.  ``--pad-multiple auto`` (the default, as in the JAX
 package) buckets by exact shapes when at most ``--max-buckets`` occur,
 else by the planner's ladder; straggler groups launch at their exact
 size and the train batcher caps each launch at the card's memory
@@ -35,6 +39,7 @@ import torch
 
 from can_tpu_torch.cli.common import (
     DEFAULT_LAUNCH_COST_MPX,
+    make_remat_policy,
     max_launch_pixels,
     parse_launch_cost,
     parse_pad_multiple,
@@ -44,7 +49,13 @@ from can_tpu_torch.cli.common import (
     resolve_split_roots,
     split_prepared_spec,
 )
-from can_tpu_torch.device import PLATFORMS, NoCudaDeviceError, resolve_device, use_full_f32
+from can_tpu_torch.device import (
+    PLATFORMS,
+    NoCudaDeviceError,
+    resolve_device,
+    use_deterministic,
+    use_full_f32,
+)
 
 
 def parse_args(argv=None):
@@ -67,6 +78,24 @@ def parse_args(argv=None):
                    help="bfloat16 compute (f32 parameters, f32 BN moments)")
     p.add_argument("--u8-input", action="store_true",
                    help="ship uint8 pixels and normalise on the device")
+    p.add_argument("--remat", nargs="?", const="on", default="auto",
+                   choices=["auto", "on", "off"],
+                   help="recompute the forward segment by segment in the "
+                        "backward (torch.utils.checkpoint): the same "
+                        "gradients for less activation memory.  'auto' "
+                        "(default) turns it on per launch shape where the "
+                        "step's footprint without it would exceed 80%% of "
+                        "the card's memory (cli/common.py); bare --remat "
+                        "forces it on, 'off' disables it and caps launches "
+                        "by the footprint without remat")
+    p.add_argument("--vgg16-npz", type=str, default="",
+                   help="pretrained VGG-16 frontend .npz "
+                        "(tools/convert_vgg16.py's layout)")
+    p.add_argument("--s2d-stem", action="store_true",
+                   help="run the first frontend conv in space-to-depth "
+                        "space (the folded kernel of ops/conv.py "
+                        "fold_stem_kernel): the plain stem up to summation "
+                        "order")
     p.add_argument("--data_root", type=str, default="",
                    help="ShanghaiTech-layout root "
                         "(<root>/<split>_data/{images,ground_truth})")
@@ -80,6 +109,11 @@ def parse_args(argv=None):
     p.add_argument("--init-torch-pth", type=str, default="",
                    help="warm-start the parameters from a reference-layout "
                         ".pth (strict layout check; optimizer and step fresh)")
+    p.add_argument("--allow-config-change", action="store_true",
+                   help="permit resuming (--init_checkpoint) with "
+                        "schedule-bearing flags (lr/lrf/epochs/batch/seed/"
+                        "syncBN/bf16) that differ from the checkpoint's run; "
+                        "without it such drift is an error")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--pad-multiple", type=parse_pad_multiple, default="auto",
                    help="'auto' (default): exact shapes when at most "
@@ -92,6 +126,12 @@ def parse_args(argv=None):
     p.add_argument("--no-remnant-batches", action="store_true",
                    help="pad straggler groups to the full batch instead of "
                         "launching them at their exact size")
+    p.add_argument("--plan-mode", choices=("cost", "legacy"), default="cost",
+                   help="batch-plan search: 'cost' (default) plans bucket "
+                        "boundaries, per-cell batch sizes and remnant menus "
+                        "under one cost model; 'legacy' is the earlier "
+                        "heuristic planner, kept for comparison "
+                        "(tools/plan_ablation.py)")
     p.add_argument("--launch-cost-mpx", type=parse_launch_cost,
                    default=DEFAULT_LAUNCH_COST_MPX,
                    help="fixed cost of one step launch in megapixel "
@@ -156,21 +196,30 @@ def validate(args):
              + resolve_split_roots("test", args.test_image_root,
                                    args.test_gt_root, args.data_root))
     if args.init_torch_pth:
+        if args.vgg16_npz:
+            raise SystemExit("--init-torch-pth already contains the trained "
+                             "frontend; drop --vgg16-npz")
         if args.init_checkpoint:
             raise SystemExit("--init-torch-pth (fresh warm-start) and "
                              "--init_checkpoint (full-state resume) conflict; "
                              "pick one")
         if not os.path.isfile(args.init_torch_pth):
             raise SystemExit(f"no such checkpoint file: {args.init_torch_pth}")
+    if args.vgg16_npz and not os.path.isfile(args.vgg16_npz):
+        raise SystemExit(f"no such VGG-16 file: {args.vgg16_npz}")
     if args.init_checkpoint:
         saved = load_run_config(args.init_checkpoint)
         if saved is not None and has_checkpoint(args.init_checkpoint):
             saved = {k: v for k, v in saved.items() if k != "world_size"}
             try:
-                check_resume_config(saved, run_config(args))
+                drifted = check_resume_config(saved, run_config(args),
+                                              allow=args.allow_config_change)
             except ConfigDriftError as e:
                 raise SystemExit(f"{e}: resume with the flags the checkpoint "
-                                 f"was trained with") from None
+                                 f"was trained with (or pass "
+                                 f"--allow-config-change)") from None
+            if drifted:
+                print(f"[resume] config drift allowed: {', '.join(drifted)}")
     return roots
 
 
@@ -181,14 +230,14 @@ def train(args) -> dict:
     on bad arguments and without the asked-for device."""
     from can_tpu_torch.data import CrowdDataset, ItemCache, ShardedBatcher, StaleStoreError
     from can_tpu_torch.data.prefetch import DevicePut
-    from can_tpu_torch.models import CANNet
+    from can_tpu_torch.models import CANNet, load_vgg16_frontend
     from can_tpu_torch.ops.bn_moments import make_bn_ops
     from can_tpu_torch.train import (
         create_train_state,
         evaluate,
+        make_bucketed_train_step,
         make_eval_step,
         make_lr_schedule,
-        make_train_step,
         train_one_epoch,
     )
     from can_tpu_torch.utils.checkpoint import CheckpointManager, save_run_config
@@ -199,8 +248,10 @@ def train(args) -> dict:
         device = resolve_device(args.platform)
     except NoCudaDeviceError as e:
         raise SystemExit(f"[train] {e}") from None
-    if device.type == "cuda" and not args.bf16:
-        use_full_f32()
+    if device.type == "cuda":
+        use_deterministic()
+        if not args.bf16:
+            use_full_f32()
     compute_dtype = torch.bfloat16 if args.bf16 else None
     print(f"[start] {datetime.datetime.now():%Y-%m-%d %H:%M:%S} on {device}"
           + (f" ({torch.cuda.get_device_name(device)})"
@@ -223,13 +274,21 @@ def train(args) -> dict:
     num_workers = resolve_num_workers(args.num_workers)
     common = dict(seed=args.seed, pad_multiple=args.pad_multiple,
                   max_buckets=args.max_buckets, num_workers=num_workers,
+                  plan_mode=args.plan_mode,
                   remnant_sizes=not args.no_remnant_batches,
                   launch_cost_px=resolve_launch_cost_px(args.launch_cost_mpx,
                                                         device, announce=True))
     # the memory cap per launch: cells whose full batch would not fit the
-    # card run at smaller menu sizes (remnant mode only, as in JAX)
+    # card run at smaller menu sizes (remnant mode only, as in JAX); it
+    # counts on remat, which the policy turns on where it is needed,
+    # unless --remat off
     cap = (None if args.no_remnant_batches
-           else max_launch_pixels(bf16=args.bf16, device=device))
+           else max_launch_pixels(bf16=args.bf16, device=device,
+                                  batch_norm=args.syncBN,
+                                  remat=args.remat != "off"))
+    remat_policy = make_remat_policy(args.remat, global_batch=args.batch_size,
+                                     bf16=args.bf16, device=device,
+                                     batch_norm=args.syncBN, announce=True)
     train_batcher = ShardedBatcher(train_ds, args.batch_size, shuffle=True,
                                    max_launch_px=cap, **common)
     test_batcher = ShardedBatcher(test_ds, args.batch_size, shuffle=False,
@@ -237,10 +296,15 @@ def train(args) -> dict:
     print(f"[data] train={len(train_ds)} test={len(test_ds)} "
           f"batch={args.batch_size} workers={num_workers} launch cap "
           + (f"{cap / 1e6:.1f} Mpx" if cap is not None else "none"))
-    for tag, b in (("train", train_batcher), ("test", test_batcher)):
-        print_data_line(tag, b)
+    print_data_line("train", train_batcher, remat_policy)
+    print_data_line("test", test_batcher)
 
-    model = CANNet(device=device, seed=args.seed, batch_norm=args.syncBN)
+    model = CANNet(device=device, seed=args.seed, batch_norm=args.syncBN,
+                   s2d_stem=args.s2d_stem)
+    if args.vgg16_npz:
+        load_vgg16_frontend(model, args.vgg16_npz)
+        print(f"[init] loaded the pretrained VGG-16 frontend from "
+              f"{args.vgg16_npz}")
     if args.init_torch_pth:
         from can_tpu_torch.utils.torch_import import (
             is_batch_norm_layout,
@@ -279,7 +343,9 @@ def train(args) -> dict:
                   f"(step {state.step}, best MAE {best:.3f})")
     save_run_config(args.checkpoint_dir, dict(run_config(args), world_size=1))
 
-    train_step = make_train_step(compute_dtype=compute_dtype, bn_ops=bn_ops)
+    train_step = make_bucketed_train_step(policy=remat_policy,
+                                          compute_dtype=compute_dtype,
+                                          bn_ops=bn_ops)
     eval_step = make_eval_step(compute_dtype=compute_dtype)
     put = DevicePut(device)
     logger = MetricLogger(use_wandb=args.wandb, run_id_file=os.path.join(

@@ -10,7 +10,8 @@ and buckets that are exact shapes, integer multiples or, with
 ``pad_multiple="auto"``, a per-axis ladder chosen from the dataset's
 shape histogram.  With ``remnant_sizes`` the launch plan (per-cell batch
 sizes under the memory cap, straggler covers at exact sizes, group
-merges) comes from the cost model of ``data/planner.py``.  The schedule
+merges) comes from the cost model of ``data/planner.py``, or with
+``plan_mode="legacy"`` from its pre-cost-model heuristics.  The schedule
 equals the JAX package's for the same seed, epoch and arguments.
 Host-side numpy, no torch.
 """
@@ -131,6 +132,9 @@ class ShardedBatcher:
       it from the card's measurement).
     max_launch_px: device-memory cap per launch (batch * H * W), or None:
       cells whose full batch would not fit run at smaller menu sizes.
+    plan_mode: "cost" (default) or "legacy" (``data/planner.py``'s
+      modes; legacy also scores ladders by padded area and uses the
+      power-of-two menu).
     """
 
     def __init__(self, dataset, batch_size: int, *, shuffle: bool = True,
@@ -139,9 +143,13 @@ class ShardedBatcher:
                  remnant_sizes: bool = False,
                  batch_quantum: Optional[int] = None,
                  launch_cost_px: float = 2e6,
-                 max_launch_px: Optional[float] = None):
+                 max_launch_px: Optional[float] = None,
+                 plan_mode: str = "cost"):
         if int(batch_size) < 1:
             raise ValueError(f"batch_size must be >= 1, got {batch_size}")
+        if plan_mode not in ("cost", "legacy"):
+            raise ValueError(f"unknown plan_mode {plan_mode!r}")
+        self.plan_mode = plan_mode
         self.dataset = dataset
         self.batch_size = int(batch_size)
         self.shuffle = shuffle
@@ -240,10 +248,10 @@ class ShardedBatcher:
         occur; else the per-axis ladder (kh H bounds x kw W bounds) of
         least cost.  Each candidate grid starts from quantiles and is
         coordinate-descended (each axis re-solved exactly, weighted by the
-        other axis's padded extent).  With remnant sizes every grid with
-        kh * kw <= max_buckets is scored by the full plan cost of the
-        schedule it induces; without, grids that fill the budget are
-        scored by padded area.  Sets ``bucket_ladder``; returns None (the
+        other axis's padded extent).  With remnant sizes in cost mode every
+        grid with kh * kw <= max_buckets is scored by the full plan cost
+        of the schedule it induces; otherwise grids that fill the budget
+        are scored by padded area.  Sets ``bucket_ladder``; returns None (the
         pad multiple)."""
         shapes = self._shapes()
         if not shapes or len(set(shapes)) <= self.max_buckets:
@@ -251,7 +259,7 @@ class ShardedBatcher:
         floor = self.ds
         hs = [h for h, _ in shapes]
         ws = [w for _, w in shapes]
-        cost_scored = self.remnant_sizes
+        cost_scored = self.plan_mode == "cost" and self.remnant_sizes
         candidates = ((kh, kw)
                       for kh in range(1, self.max_buckets + 1)
                       for kw in (range(1, self.max_buckets // kh + 1)
@@ -297,7 +305,8 @@ class ShardedBatcher:
         cells, ncell = np.unique(np.stack([hb_arr[hi], wb_arr[wi]], axis=1),
                                  axis=0, return_counts=True)
         counts = {(int(h), int(w)): int(c) for (h, w), c in zip(cells, ncell)}
-        planner = GlobalPlanner(self._cost_model(), max_buckets=self.max_buckets)
+        planner = GlobalPlanner(self._cost_model(), max_buckets=self.max_buckets,
+                                mode=self.plan_mode)
         return planner.plan_with_fallback(counts).cost
 
     # -- economics and descriptions ---------------------------------------
@@ -352,7 +361,8 @@ class ShardedBatcher:
 
     # -- the plan ------------------------------------------------------------
     def _remnant_menu(self) -> Tuple[int, ...]:
-        return remnant_menu(self.batch_size, self.batch_quantum)
+        return remnant_menu(self.batch_size, self.batch_quantum,
+                            mode=self.plan_mode)
 
     def _cost_model(self, menu: Optional[Tuple[int, ...]] = None):
         return PlanCostModel(menu=menu or self._remnant_menu(),
@@ -394,7 +404,7 @@ class ShardedBatcher:
         if self._plan_cache is None:
             planner = GlobalPlanner(self._cost_model(),
                                     max_buckets=self.max_buckets,
-                                    warn=self._warn)
+                                    mode=self.plan_mode, warn=self._warn)
             self._plan_cache = planner.plan_with_fallback(self._cell_counts())
         return self._plan_cache
 
@@ -406,7 +416,7 @@ class ShardedBatcher:
         used_px = sum(k[0] * k[1] * len(g) for k, g in sched)
         valid_px = sum(h * w for h, w in self._shapes())
         stats = {
-            "plan_mode": "cost",
+            "plan_mode": self.plan_mode,
             "padding_overhead": round(self.padding_overhead(), 4),
             "schedule_overhead": round(used_px / max(valid_px, 1) - 1.0, 4),
             "program_count": len({(k, len(g)) for k, g in sched}),

@@ -3,9 +3,10 @@
 The card's machine has neither PIL nor OpenCV, so the port decodes PNG
 itself (``zlib`` + numpy: 8-bit gray, RGB and RGBA, non-interlaced, all
 five row filters) and writes it (``write_png``, the synthetic dataset's
-writer).  JPEG is read through PIL only where PIL happens to be
+writer).  JPEG pixels are read through PIL only where PIL happens to be
 installed; without it ``read_image`` raises, naming the file and the
-missing decoder.  ``resize_linear`` is the one bilinear resize of the
+missing decoder.  Sizes need no decoder: ``image_size`` reads a PNG's
+IHDR chunk or a JPEG's start-of-frame marker.  ``resize_linear`` is the one bilinear resize of the
 port (the dataset's /8 snapping and the serve path's ``prepare_image``).
 
 Row filters 0 (None), 1 (Sub) and 2 (Up) decode as whole-row numpy
@@ -193,12 +194,67 @@ def _is_png(path: str) -> bool:
         return f.read(8) == PNG_SIGNATURE
 
 
+# JPEG start-of-frame markers that carry the frame size: baseline (SOF0),
+# extended (SOF1), progressive (SOF2) and the rarer lossless and
+# arithmetic-coded ones; 0xC4 (DHT), 0xC8 (JPG) and 0xCC (DAC) share the
+# range but are not frames
+_JPEG_SOF = {0xC0, 0xC1, 0xC2, 0xC3, 0xC5, 0xC6, 0xC7,
+             0xC9, 0xCA, 0xCB, 0xCD, 0xCE, 0xCF}
+
+
+def _jpeg_size(f, path: str) -> Tuple[int, int]:
+    """(W, H) from the first start-of-frame segment of a JPEG whose SOI
+    marker has been read."""
+    while True:
+        byte = f.read(1)
+        while byte == b"\xff":  # fill bytes before a marker
+            byte = f.read(1)
+        if not byte:
+            break
+        marker = byte[0]
+        if marker in (0x01, 0xD8) or 0xD0 <= marker <= 0xD7:
+            continue  # standalone markers: no length
+        head = f.read(2)
+        if len(head) < 2:
+            break
+        (length,) = struct.unpack(">H", head)
+        if marker in _JPEG_SOF:
+            body = f.read(5)
+            if len(body) < 5:
+                break
+            _, h, w = struct.unpack(">BHH", body)
+            return w, h
+        if marker == 0xD9 or length < 2:
+            break
+        f.seek(length - 2, os.SEEK_CUR)
+        # the byte after a segment must start the next marker
+        if f.read(1) != b"\xff":
+            break
+        f.seek(-1, os.SEEK_CUR)
+    raise ImageDecodeError(f"{path}: JPEG with no start-of-frame marker")
+
+
+def image_size(path: str) -> Tuple[int, int]:
+    """(W, H) — PIL's ``Image.size`` — from the file's header alone: the
+    IHDR chunk of a PNG, the first start-of-frame marker (SOF0, SOF2, ...)
+    of a JPEG.  No pixel is decoded and no PIL is needed."""
+    with open(path, "rb") as f:
+        head = f.read(len(PNG_SIGNATURE))
+        if head == PNG_SIGNATURE:
+            f.read(4)  # IHDR's length
+            if f.read(4) != b"IHDR":
+                raise ImageDecodeError(f"{path}: PNG without a leading IHDR")
+            w, h = struct.unpack(">II", f.read(8))
+            return w, h
+        if head[:2] == b"\xff\xd8":
+            f.seek(2)
+            return _jpeg_size(f, path)
+    raise ImageDecodeError(f"{path}: neither PNG nor JPEG (by its first bytes)")
+
+
 def image_shape(path: str) -> Tuple[int, int]:
-    """(H, W) from the file's header."""
-    if _is_png(path):
-        return png_shape(path)
-    with _pil(path).open(path) as im:
-        w, h = im.size
+    """(H, W) from the file's header (``image_size``)."""
+    w, h = image_size(path)
     return h, w
 
 

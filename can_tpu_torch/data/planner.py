@@ -1,5 +1,5 @@
 """Cost-model batch planning for the bucketed schedule (counterpart of
-``can_tpu/data/planner.py:55-489``, its ``"cost"`` mode).
+``can_tpu/data/planner.py:55-489``).
 
 One objective prices every launch plan, in pixels:
 
@@ -23,8 +23,13 @@ training rate).  The search is deterministic and covers:
 Everything is a pure function of the shape histogram and the config, so
 the plan is the same in every epoch (the shuffle only decides which items
 fill the slots) and equal to the JAX package's for the same inputs
-(tests/test_torch_planner.py).  The JAX package's ``"legacy"`` mode, its
-ablation baseline, is not ported.  Host code: no torch.
+(tests/test_torch_planner.py).
+
+``mode="legacy"`` is the pre-cost-model planner, bit-compatible with the
+JAX package's (tests/test_torch_legacy_plan.py): the largest fitting
+full size, the power-of-two menu, pairwise merges and drops of the
+smallest menu size only — the baseline arm of ``tools/plan_ablation.py``.
+Host code: no torch.
 """
 
 from __future__ import annotations
@@ -196,12 +201,22 @@ def merge_partial_groups(partials, gbs: int):
 
 
 class GlobalPlanner:
-    """Search the joint plan space for one shape-count histogram."""
+    """Search the joint plan space for one shape-count histogram.
+
+    mode="cost" (default): full-cell size pricing, exact-size menus,
+    merge + move/extract local search, drop-any-size budget lever.
+    mode="legacy": the pre-cost-model heuristics — the largest fitting
+    full size, no local search, only the smallest menu size dropped.
+    """
 
     def __init__(self, model: PlanCostModel, *, max_buckets: int,
+                 mode: str = "cost",
                  warn: Optional[Callable[[str], None]] = None):
+        if mode not in ("cost", "legacy"):
+            raise ValueError(f"unknown planner mode {mode!r}")
         self.model = model
         self.max_buckets = int(max_buckets)
+        self.mode = mode
         self.warn = warn or (lambda msg: None)
         self._parts_cache: Dict[Tuple, Tuple[int, ...]] = {}
         self._floor_warned: set = set()
@@ -224,7 +239,8 @@ class GlobalPlanner:
         full_parts: Dict[Key, Tuple[int, ...]] = {}
         pool: List[Tuple[Key, int]] = []  # (cell key, remnant count)
         for k, c in sorted(counts.items()):
-            cf = model.full_size(k, c)
+            cf = (model.full_size(k, c) if self.mode == "cost"
+                  else max(model.fitting(k)))
             if not model.fits(k, min(menu)) and k not in self._floor_warned:
                 self._floor_warned.add(k)
                 self.warn(
@@ -276,53 +292,55 @@ class GlobalPlanner:
         # Phase A — steepest descent: MERGE two groups, MOVE one source
         # cell between groups or EXTRACT one, most negative cost delta
         # first; the cost falls strictly over a finite space, so it ends.
-        while True:
-            best = None
-            for i in range(len(groups)):
-                for j in range(i + 1, len(groups)):
-                    u = groups[i] | groups[j]
-                    if not gfits(u, menu):
-                        continue
-                    d = (gcost(u, menu) - gcost(groups[i], menu)
-                         - gcost(groups[j], menu))
-                    if d < -1e-9 and (best is None or d < best[0]):
-                        best = (d, "merge", (i, j))
-                if len(groups[i]) <= 1:
-                    continue
-                for s in sorted(groups[i]):
-                    rest = groups[i] - {s}
-                    base_d = gcost(rest, menu) - gcost(groups[i], menu)
-                    for j in range(len(groups)):
-                        if j == i:
-                            continue
-                        u = groups[j] | {s}
+        # Cost mode only.
+        if self.mode == "cost":
+            while True:
+                best = None
+                for i in range(len(groups)):
+                    for j in range(i + 1, len(groups)):
+                        u = groups[i] | groups[j]
                         if not gfits(u, menu):
                             continue
-                        d = (base_d + gcost(u, menu)
+                        d = (gcost(u, menu) - gcost(groups[i], menu)
                              - gcost(groups[j], menu))
                         if d < -1e-9 and (best is None or d < best[0]):
-                            best = (d, "move", (i, j, s))
-                    d = base_d + gcost(frozenset({s}), menu)
-                    if d < -1e-9 and (best is None or d < best[0]):
-                        best = (d, "extract", (i, s))
-            if best is None:
-                break
-            _, lever, payload = best
-            if lever == "merge":
-                i, j = payload
-                groups[i] = groups[i] | groups[j]
-                groups.pop(j)
-            elif lever == "move":
-                i, j, s = payload
-                groups[j] = groups[j] | {s}
-                groups[i] = groups[i] - {s}
-                groups = [g for g in groups if g]
-            else:
-                i, s = payload
-                groups[i] = groups[i] - {s}
-                groups.append(frozenset({s}))
-                groups = [g for g in groups if g]
-            resort()
+                            best = (d, "merge", (i, j))
+                    if len(groups[i]) <= 1:
+                        continue
+                    for s in sorted(groups[i]):
+                        rest = groups[i] - {s}
+                        base_d = gcost(rest, menu) - gcost(groups[i], menu)
+                        for j in range(len(groups)):
+                            if j == i:
+                                continue
+                            u = groups[j] | {s}
+                            if not gfits(u, menu):
+                                continue
+                            d = (base_d + gcost(u, menu)
+                                 - gcost(groups[j], menu))
+                            if d < -1e-9 and (best is None or d < best[0]):
+                                best = (d, "move", (i, j, s))
+                        d = base_d + gcost(frozenset({s}), menu)
+                        if d < -1e-9 and (best is None or d < best[0]):
+                            best = (d, "extract", (i, s))
+                if best is None:
+                    break
+                _, lever, payload = best
+                if lever == "merge":
+                    i, j = payload
+                    groups[i] = groups[i] | groups[j]
+                    groups.pop(j)
+                elif lever == "move":
+                    i, j, s = payload
+                    groups[j] = groups[j] | {s}
+                    groups[i] = groups[i] - {s}
+                    groups = [g for g in groups if g]
+                else:
+                    i, s = payload
+                    groups[i] = groups[i] - {s}
+                    groups.append(frozenset({s}))
+                    groups = [g for g in groups if g]
+                resort()
 
         # Phase B — the budget loop: improving merges always apply; forced
         # merges and menu drops only while the program count exceeds
@@ -341,9 +359,12 @@ class GlobalPlanner:
                     if (d < -1e-9 or over) and (best is None or d < best[0]):
                         best = (d, "merge", (i, j))
             if over and len(menu) > 1:
-                # drop any menu size but the quantum, if every current
-                # group keeps a launch size under the cap
-                for di in range(len(menu) - 1):
+                # drop a menu size but the quantum, if every current group
+                # keeps a launch size under the cap: any size in cost
+                # mode, only the smallest (the last) in legacy mode
+                droppable = (range(len(menu) - 1) if self.mode == "cost"
+                             else (len(menu) - 1,))
+                for di in droppable:
                     m2 = menu[:di] + menu[di + 1:]
                     if not all(gfits(g, m2) for g in groups):
                         continue
@@ -433,7 +454,15 @@ def schedule_coverage(schedule) -> Dict[int, int]:
     return seen
 
 
-def remnant_menu(gbs: int, quantum: int) -> Tuple[int, ...]:
-    """Legal launch sizes, descending: every multiple of the quantum up to
-    the batch (the JAX package's cost-mode menu)."""
-    return tuple(range(gbs, 0, -quantum))
+def remnant_menu(gbs: int, quantum: int, *, mode: str = "cost") -> Tuple[int, ...]:
+    """Legal launch sizes, descending.  Cost mode: every multiple of the
+    quantum up to the batch.  Legacy mode: the batch and quantum * 2^j
+    below it."""
+    if mode == "cost":
+        return tuple(range(gbs, 0, -quantum))
+    menu = {gbs}
+    size = quantum
+    while size < gbs:
+        menu.add(size)
+        size *= 2
+    return tuple(sorted(menu, reverse=True))

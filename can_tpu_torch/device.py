@@ -7,9 +7,13 @@ gets an error naming the missing card, never a run on the CPU.
 
 from __future__ import annotations
 
+import os
+
 import torch
 
 PLATFORMS = ("default", "gpu", "cpu")
+# the two cuBLAS workspace settings NVIDIA documents as deterministic
+CUBLAS_DETERMINISTIC_CONFIGS = (":4096:8", ":16:8")
 
 
 class NoCudaDeviceError(RuntimeError):
@@ -39,3 +43,30 @@ def use_full_f32() -> None:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
+
+
+def use_deterministic() -> None:
+    """Training repeats itself bit for bit, as the JAX trainer does on one
+    device.  Process-wide; call it before the process's first CUDA work:
+
+    * ``CUBLAS_WORKSPACE_CONFIG=:4096:8`` unless one of the two
+      deterministic values is set already: PyTorch reads the variable
+      once, at the first cuBLAS call, and under deterministic algorithms
+      every later cuBLAS call raises when it was missing then;
+    * ``cudnn.deterministic`` on and ``cudnn.benchmark`` off: cuDNN picks
+      deterministic convolution algorithms (in f32 its default weight
+      gradients may accumulate with atomics);
+    * ``torch.use_deterministic_algorithms(True)``: an op with no
+      deterministic form raises instead of running (the port's adaptive
+      pool is a matrix contraction for that reason, ``ops/pooling.py``);
+    * ``fill_uninitialized_memory`` off: it would fill every
+      ``torch.empty`` with NaN, a write per allocation, and guards only
+      against reading memory never written, which no op of the port does
+      (``chip_smoke.py [determinism]`` runs the kernel checks with it on).
+    """
+    if os.environ.get("CUBLAS_WORKSPACE_CONFIG") not in CUBLAS_DETERMINISTIC_CONFIGS:
+        os.environ["CUBLAS_WORKSPACE_CONFIG"] = CUBLAS_DETERMINISTIC_CONFIGS[0]
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    torch.use_deterministic_algorithms(True)
+    torch.utils.deterministic.fill_uninitialized_memory = False

@@ -7,10 +7,11 @@ from can_tpu_torch.models.cannet import (
     FRONTEND_CFG,
     CANNet,
     context_block,
+    load_vgg16_frontend,
     random_state_dict,
     reference_param_shapes,
 )
 
 __all__ = ["BACKEND_CFG", "CONTEXT_SCALES", "FEAT_CH", "FRONTEND_CFG",
-           "CANNet", "context_block", "random_state_dict",
+           "CANNet", "context_block", "load_vgg16_frontend", "random_state_dict",
            "reference_param_shapes"]

@@ -27,15 +27,23 @@ place under ``no_grad`` (the PyTorch idiom for the JAX package's returned
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from can_tpu_torch.ops.bn_moments import BNOps
-from can_tpu_torch.ops.conv import conv1x1, conv2d
+from can_tpu_torch.ops.conv import (
+    conv1x1,
+    conv2d,
+    depth_to_space,
+    fold_stem_kernel,
+    space_to_depth,
+)
 from can_tpu_torch.ops.cuda_context import make_fused_context
 from can_tpu_torch.ops.pooling import adaptive_avg_pool2d, max_pool2d
 
@@ -79,13 +87,18 @@ class CANNet(nn.Module):
     context_fused: replaces the context-tail seam ``(fv, aves, weights,
     hw) -> fi``; None keeps ``ops.cuda_context``'s (the CUDA kernel on a
     CUDA tensor, its plain version on a CPU tensor).
+    s2d_stem: the first frontend conv runs as
+    ``depth_to_space(conv2d(space_to_depth(x), w', b'))`` with the folded
+    kernel (``ops.conv.fold_stem_kernel``): the plain stem up to
+    summation order, trained through the original weights.
     """
 
     def __init__(self, *, device=None, dtype=torch.float32,
                  seed: Optional[int] = 0, batch_norm: bool = False,
-                 context_fused=None):
+                 context_fused=None, s2d_stem: bool = False):
         super().__init__()
         self.batch_norm = bool(batch_norm)
+        self.s2d_stem = bool(s2d_stem)
         # built on the meta device: no storage, no draw from the global RNG
         with torch.device("meta"):
             self.frontend = _make_layers(FRONTEND_CFG, 3, 1, batch_norm)
@@ -102,6 +115,14 @@ class CANNet(nn.Module):
                                   random_state_dict(seed, batch_norm=batch_norm)
                                   .items()})
         self.context_fused = context_fused or make_fused_context()
+        # the frontend's remat segments: each stage ends at its max-pool
+        stages, cur = [], []
+        for layer in self.frontend:
+            cur.append(layer)
+            if isinstance(layer, nn.MaxPool2d):
+                stages.append(cur)
+                cur = []
+        self._stages = stages + [cur]
 
     def context_params(self) -> Dict[str, Dict[str, torch.Tensor]]:
         """The context 1x1s as the JAX package's (Cin, Cout) matrices:
@@ -115,67 +136,100 @@ class CANNet(nn.Module):
                 pixel_mask: Optional[torch.Tensor] = None,
                 sample_mask: Optional[torch.Tensor] = None,
                 bn_ops: Optional[BNOps] = None,
-                compute_dtype=None) -> torch.Tensor:
+                compute_dtype=None, remat: bool = False) -> torch.Tensor:
         """(N, H, W, 3) NHWC image batch -> (N, H/8, W/8, 1) density map,
         computed in ``compute_dtype`` (default: x's dtype).
 
         BN model only: ``train`` takes the batch moments (through
         ``bn_ops``; None = two-pass) and updates the running statistics in
-        place; otherwise the running statistics normalise.
-        ``pixel_mask`` ((N, H/8, W/8, 1)) and ``sample_mask`` ((N,))
-        restrict the train-mode moments to real pixels of real images:
-        the /8 mask is upsampled by 8 and subsampled by each max-pool
-        (valid regions are /8-snapped, so this is exact).
+        place, once, after the forward; otherwise the running statistics
+        normalise.  ``pixel_mask`` ((N, H/8, W/8, 1)) and ``sample_mask``
+        ((N,)) restrict the train-mode moments to real pixels of real
+        images: the /8 mask is upsampled by 8 and subsampled by each
+        max-pool (valid regions are /8-snapped, so this is exact).
+
+        ``remat`` (with gradients enabled): each segment — the frontend's
+        four stages, each ending at its max-pool, the context block and
+        the backend — runs under ``torch.utils.checkpoint``, so the
+        backward keeps only the segments' inputs and recomputes the rest
+        one segment at a time.  The recompute takes the same batch moments
+        and leaves the running statistics alone: the updates a segment
+        returns are applied after the forward, from its first run only.
         """
         if compute_dtype is not None:
             x = x.to(compute_dtype)
         dt = x.dtype
-        bn_mask = None
+        masks = [None] * len(self._stages)
         if self.batch_norm and train and pixel_mask is not None:
             m8 = pixel_mask.float()
             if sample_mask is not None:
                 m8 = m8 * sample_mask.float()[:, None, None, None]
             ds = x.shape[-3] // m8.shape[-3]  # 8 at input resolution
-            bn_mask = m8.repeat_interleave(ds, dim=-3).repeat_interleave(ds, dim=-2)
-        x, bn_mask = self._stack(self.frontend, x, dt, 1, train, bn_mask, bn_ops)
-        fv = x
+            masks[0] = m8.repeat_interleave(ds, dim=-3).repeat_interleave(ds, dim=-2)
+            for i in range(1, len(masks)):
+                # contiguous once here, not in each BN layer's kernel call
+                masks[i] = masks[i - 1][:, ::2, ::2, :].contiguous()
+
+        def run(fn, *args):
+            if remat and torch.is_grad_enabled():
+                # the model has no random op: no RNG state to carry
+                return checkpoint(fn, *args, use_reentrant=False,
+                                  preserve_rng_state=False)
+            return fn(*args)
+
+        stack = functools.partial(self._stack, dt=dt, train=train, bn_ops=bn_ops)
+        updates = []
+        for stage, mask in zip(self._stages, masks):
+            x, ups = run(stack, stage, x, mask)
+            updates += ups
+        x = run(self._context, x)
+        # at /8 the mask is back at pixel_mask resolution
+        x, ups = run(stack, self.backend, x, masks[-1])
+        updates += ups
+        if updates:
+            with torch.no_grad():
+                for layer, new in updates:
+                    layer.running_mean.copy_(new["mean"])
+                    layer.running_var.copy_(new["var"])
+                    layer.num_batches_tracked += 1
+        return x
+
+    def _context(self, fv):
+        """The context block and the concatenation: (fv, fi)."""
         fi = context_block(self.context_params(), fv,
                            context_fused=self.context_fused)
-        x = torch.cat([fv, fi], dim=-1)
-        # at /8 the mask is back at pixel_mask resolution
-        x, _ = self._stack(self.backend, x, dt, 2, train, bn_mask, bn_ops)
-        p = self.output_layer
-        return conv2d(x, p.weight.to(dt), p.bias.to(dt), padding=0)
+        return torch.cat([fv, fi], dim=-1)
 
-    def _stack(self, layers: nn.Sequential, x, dt, dilation, train, bn_mask,
-               bn_ops):
+    def _stack(self, layers, x, bn_mask, *, dt, train, bn_ops):
+        """A frontend stage or the backend (with the output conv), one
+        remat segment: returns ``(x, [(BatchNorm2d, new stats), ...])``."""
+        dilation = 2 if layers is self.backend else 1
+        updates = []
         for layer in layers:
             if isinstance(layer, nn.Conv2d):
-                x = conv2d(x, layer.weight.to(dt), layer.bias.to(dt),
-                           dilation=dilation)
+                if self.s2d_stem and layer is self.frontend[0]:
+                    wp, bp = fold_stem_kernel(layer.weight.to(dt),
+                                              layer.bias.to(dt))
+                    x = depth_to_space(conv2d(space_to_depth(x), wp, bp))
+                else:
+                    x = conv2d(x, layer.weight.to(dt), layer.bias.to(dt),
+                               dilation=dilation)
             elif isinstance(layer, nn.BatchNorm2d):
-                x = self._bn(layer, x, train, bn_mask, bn_ops)
+                stats = {"mean": layer.running_mean, "var": layer.running_var}
+                x, new = _batch_norm(x, {"scale": layer.weight,
+                                         "bias": layer.bias},
+                                     stats, train, BN_MOMENTUM, mask=bn_mask,
+                                     bn_ops=bn_ops)
+                if new is not None:
+                    updates.append((layer, new))
             elif isinstance(layer, nn.ReLU):
                 x = F.relu(x, inplace=True)
             elif isinstance(layer, nn.MaxPool2d):
                 x = max_pool2d(x)
-                if bn_mask is not None:
-                    # contiguous once here, not in each BN layer's kernel call
-                    bn_mask = bn_mask[:, ::2, ::2, :].contiguous()
-        return x, bn_mask
-
-    @staticmethod
-    def _bn(layer: nn.BatchNorm2d, y, train, mask, bn_ops):
-        stats = {"mean": layer.running_mean, "var": layer.running_var}
-        out, updated = _batch_norm(y, {"scale": layer.weight, "bias": layer.bias},
-                                   stats, train, BN_MOMENTUM, mask=mask,
-                                   bn_ops=bn_ops)
-        if updated is not None:
-            with torch.no_grad():
-                layer.running_mean.copy_(updated["mean"])
-                layer.running_var.copy_(updated["var"])
-                layer.num_batches_tracked += 1
-        return out
+        if layers is self.backend:
+            p = self.output_layer
+            x = conv2d(x, p.weight.to(dt), p.bias.to(dt), padding=0)
+        return x, updates
 
 
 def _batch_norm(y, bn_params: Mapping, stats: Optional[Mapping], train: bool,
@@ -250,6 +304,30 @@ def context_block(cparams: Mapping, fv: torch.Tensor, *,
             for s in CONTEXT_SCALES]
     weights = [cparams[f"s{s}"]["weight"].to(fv.dtype) for s in CONTEXT_SCALES]
     return context_fused(fv, aves, weights, hw)
+
+
+def load_vgg16_frontend(model: CANNet, npz_path: str) -> CANNet:
+    """Copy pretrained VGG-16 conv weights into the 10 frontend convs, in
+    place (``load_vgg16_frontend`` of can_tpu/models/cannet.py:392).  The
+    ``.npz`` is ``tools/convert_vgg16.py``'s: keys ``conv{i}_w`` (HWIO)
+    and ``conv{i}_b`` for i in 0..9.  Shapes are checked in HWIO, with the
+    JAX loader's errors; a BN model's BatchNorm parameters and running
+    statistics are left alone.  Returns the model."""
+    data = np.load(npz_path)
+    convs = [m for m in model.frontend if isinstance(m, nn.Conv2d)]
+    with torch.no_grad():
+        for i, conv in enumerate(convs):
+            w = np.asarray(data[f"conv{i}_w"])
+            b = np.asarray(data[f"conv{i}_b"])
+            want_w = tuple(conv.weight.permute(2, 3, 1, 0).shape)
+            if w.shape != want_w:
+                raise ValueError(f"conv{i}: npz shape {w.shape} != expected {want_w}")
+            if b.shape != tuple(conv.bias.shape):
+                raise ValueError(f"conv{i}: bias shape {b.shape} != expected "
+                                 f"{tuple(conv.bias.shape)}")
+            conv.weight.copy_(torch.from_numpy(w).permute(3, 2, 0, 1))
+            conv.bias.copy_(torch.from_numpy(b))
+    return model
 
 
 def reference_param_shapes(batch_norm: bool = False) -> Dict[str, tuple]:

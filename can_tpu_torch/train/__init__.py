@@ -11,6 +11,7 @@ from can_tpu_torch.train.state import (
 )
 from can_tpu_torch.train.steps import (
     NonFiniteLossError,
+    make_bucketed_train_step,
     make_eval_step,
     make_train_step,
     normalize_on_device,
@@ -19,4 +20,4 @@ from can_tpu_torch.train.steps import (
 __all__ = ["EpochStats", "evaluate", "train_one_epoch", "density_counts",
            "masked_mse_sum", "TrainState", "create_train_state",
            "make_lr_schedule", "make_optimizer", "NonFiniteLossError",
-           "make_eval_step", "make_train_step", "normalize_on_device"]
+           "make_bucketed_train_step", "make_eval_step", "make_train_step", "normalize_on_device"]

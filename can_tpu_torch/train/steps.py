@@ -61,14 +61,15 @@ def global_norm(tensors) -> torch.Tensor:
 
 
 def forward_loss(state, batch: Dict[str, torch.Tensor], *, grad_divisor: int = 1,
-                 compute_dtype=None, bn_ops=None):
+                 compute_dtype=None, bn_ops=None, remat: bool = False):
     """Forward and masked MSE-sum on a device batch: returns
     ``(sse / grad_divisor, sse)``.  A BN model trains (batch moments
-    through ``bn_ops`` with the masks, running statistics updated)."""
+    through ``bn_ops`` with the masks, running statistics updated);
+    ``remat`` recomputes the forward's segments in the backward."""
     image = normalize_on_device(batch["image"], batch["pixel_mask"])
     pred = state.model(image, train=True, pixel_mask=batch["pixel_mask"],
                        sample_mask=batch["sample_mask"], bn_ops=bn_ops,
-                       compute_dtype=compute_dtype)
+                       compute_dtype=compute_dtype, remat=remat)
     sse = masked_mse_sum(pred, batch)
     return sse / grad_divisor, sse
 
@@ -79,9 +80,12 @@ def backward(state, loss: torch.Tensor) -> None:
 
 
 def make_train_step(*, grad_divisor: int = 1, compute_dtype=None,
-                    bn_ops=None, health_metrics: bool = False) -> Callable:
+                    bn_ops=None, health_metrics: bool = False,
+                    remat: bool = False) -> Callable:
     """Returns ``train_step(state, batch) -> (state, metrics)``; the state
-    (a ``train.state.TrainState``) is updated in place.
+    (a ``train.state.TrainState``) is updated in place.  ``remat``: the
+    backward recomputes the forward segment by segment (``CANNet.forward``)
+    — the same loss, gradients and running statistics, less memory.
 
     batch: dict of device tensors image/dmap/pixel_mask/sample_mask
     (``data.batching.Batch`` fields).  metrics: device scalars — ``loss``
@@ -91,7 +95,8 @@ def make_train_step(*, grad_divisor: int = 1, compute_dtype=None,
 
     def train_step(state, batch):
         loss, sse = forward_loss(state, batch, grad_divisor=grad_divisor,
-                                 compute_dtype=compute_dtype, bn_ops=bn_ops)
+                                 compute_dtype=compute_dtype, bn_ops=bn_ops,
+                                 remat=remat)
         backward(state, loss)
         params = [p for p in state.model.parameters() if p.grad is not None]
         grad_norm = global_norm([p.grad for p in params]) if health_metrics else None
@@ -102,6 +107,21 @@ def make_train_step(*, grad_divisor: int = 1, compute_dtype=None,
             metrics["grad_norm"] = grad_norm
             metrics["update_norm"] = lr * global_norm(bufs)
         return state, metrics
+
+    return train_step
+
+
+def make_bucketed_train_step(*, policy: Callable, **step_kw) -> Callable:
+    """A train step that asks ``policy(hw, batch) -> bool`` per launch
+    whether to rematerialise (``cli.common.make_remat_policy``; the
+    counterpart of can_tpu/cli/common.py:567's per-bucket remat
+    dispatch).  ``step_kw``: ``make_train_step``'s other arguments."""
+    steps = {flag: make_train_step(remat=flag, **step_kw)
+             for flag in (False, True)}
+
+    def train_step(state, batch):
+        shape = batch["image"].shape
+        return steps[bool(policy(tuple(shape[1:3]), batch=shape[0]))](state, batch)
 
     return train_step
 

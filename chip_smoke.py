@@ -82,15 +82,51 @@ Phases (any failure exits non-zero; nothing is printed as a result then):
               ``--syncBN``, the bucket at test image 0's snapped shape:
               the count equals the sum of phase 6's density map, f32
               within 1e-5, bf16 within 2e-2;
-8. planner  — the numbers behind ``cli/common.py``'s constants: the BN
-              train step's peak memory at (4, 576, 768) and (8, 576, 768),
-              f32 and bf16, fitted as fixed bytes + bytes per pixel and
-              checked at (6, 768, 1024); its Mpx/s; one launch's cost by
+8. planner  — the numbers behind ``cli/common.py``'s constants: the
+              train step's peak memory at (4, 576, 768) and (8, 576, 768)
+              for the BN and the plain model, with and without remat, f32
+              and bf16, fitted as fixed bytes + bytes per pixel and checked
+              at (6, 768, 1024); the step's Mpx/s; one launch's cost by
               ``measure_launch_cost_mpx``; the ``max_launch_pixels`` that
-              results, which must agree with this run's fit within 10%
-              (stale constants fail), admit every launch phase 5 trains,
-              and, in f32, let a step at 95% of it run; a step at 115% is
-              tried and its outcome printed;
+              results, which must agree with every fit within 10% (stale
+              constants fail), admit every launch phase 5 trains, and, in
+              f32 with remat, let a step at 95% of it run; a step at 115%
+              is tried and its outcome printed;
+slice 6, in this order after phase 3 (phases 4-8 run after it):
+   determinism — the kernels against their plain versions with
+              ``fill_uninitialized_memory`` on; the op deterministic mode
+              refuses (ATen's adaptive-pool backward); the BN train step
+              (3 steps at the fixed (8, 576, 768) batch: padding, a fill
+              slot) trained twice from one seed with each setting —
+              PyTorch's defaults (the path before this phase),
+              ``cudnn.deterministic`` alone, the matrix pool alone,
+              ``use_deterministic()`` — f32 and bf16, every parameter,
+              momentum buffer and running stat compared bitwise (the last
+              must repeat); step ms with the settings off, on, and on with
+              the memory fill; 2 epochs of the train CLI against 1 epoch,
+              a checkpoint and a resume of 1 (``--allow-config-change``),
+              bitwise.  From here on every phase runs under
+              ``use_deterministic()``;
+   remat    — one BN step with remat on against off, f32 and bf16: loss,
+              gradients and running stats bitwise equal, each BN layer's
+              count advanced once, launches per step (32 BN forward, 16
+              backward, 2 context with remat), step ms and peak memory;
+              an f32 step above the no-remat cap and under the remat cap;
+   s2d      — the folded stem conv against the plain one (f32 rel 1e-5,
+              bf16 2e-2) and the BN model's forward with it at the model
+              tolerance, and the train step ms of each;
+   vgg16    — the train CLI with ``--vgg16-npz`` on a seeded .npz, one
+              step at lr 0: the checkpoint's frontend is the file's;
+   (then phases 5-8, and) legacy — a ``--plan-mode legacy`` auto epoch,
+              and ``python -m can_tpu_torch.tools.plan_ablation`` (cost
+              against legacy on a seeded histogram; every plan's
+              predicted cost equal to its schedule's);
+   prepare  — ``can_tpu_torch.tools.prepare_data --prepared`` on seeded
+              ShanghaiTech ``.mat`` data (PNG images), ``--verify-store``,
+              and one auto epoch of the train CLI from that store;
+   golden   — tests/test_golden.py's recipe (10 epochs, batch 8, the
+              plain model) against its JAX goldens: f32 within 1%, bf16
+              reported against 5%;
 9. report   — the card's name and power limit (nvidia-smi's own line), a
               ``kernels`` JSON line,
               and last the result line ``{"ok": true, "device": {...}}``.
@@ -107,6 +143,7 @@ Imports torch, numpy, the standard library and ``can_tpu_torch`` — no JAX.
 """
 
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -953,13 +990,15 @@ def fixed_batch(root: Path):
     return batch_to_device(batch, "cuda")
 
 
-def _state():
+def _state(batch_norm: bool = True, s2d_stem: bool = False):
     import torch
 
     from can_tpu_torch.models import CANNet
     from can_tpu_torch.train import create_train_state, make_lr_schedule
 
-    model = CANNet(device="cuda", seed=SEED, batch_norm=True)
+    # s2d_stem only when asked: --measure-only runs this in older checkouts
+    model = CANNet(device="cuda", seed=SEED, batch_norm=batch_norm,
+                   **({"s2d_stem": True} if s2d_stem else {}))
     return create_train_state(model.to(memory_format=torch.channels_last),
                               make_lr_schedule(1e-6))
 
@@ -1260,97 +1299,126 @@ def synthetic_batch(b: int, h: int, w: int):
             "sample_mask": torch.ones((b,), device="cuda")}
 
 
-def train_step_cost(shape, bf16: bool):
-    """(peak bytes allocated, median ms) of a warm BN-model train step with
-    the kernels at ``shape``: weights, gradients and momentum included."""
+def train_step_cost(shape, bf16: bool, *, batch_norm: bool = True,
+                    remat: bool = False, reps: int = 3):
+    """(peak bytes allocated, median ms) of a warm train step with the
+    kernels at ``shape`` (BN or plain model, remat on or off): weights,
+    gradients and momentum included.  ``reps=0``: one step, its peak
+    memory and wall ms."""
     import torch
 
     from can_tpu_torch.ops import bn_moments as bm
     from can_tpu_torch.train import make_train_step
 
-    state = _state()
+    state = _state(batch_norm=batch_norm)
     batch = synthetic_batch(*shape)
     step = make_train_step(compute_dtype=torch.bfloat16 if bf16 else None,
-                           bn_ops=bm.make_bn_ops("kernel"))
-    step(state, batch)
+                           bn_ops=bm.make_bn_ops("kernel") if batch_norm else None,
+                           remat=remat)
+    if reps:
+        step(state, batch)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    ms = time_ms(lambda: step(state, batch), reps=3)
+    if reps:
+        ms = time_ms(lambda: step(state, batch), reps=reps)
+    else:
+        t0 = time.perf_counter()
+        step(state, batch)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
     peak = torch.cuda.max_memory_allocated()
     del state, batch
     torch.cuda.empty_cache()
     return peak, ms
 
 
-def fits_on_card(shape, bf16: bool) -> bool:
-    """Does one train step at ``shape`` run, or run out of device memory?"""
+def fits_on_card(shape, bf16: bool, remat: bool = False) -> bool:
+    """Does one BN train step at ``shape`` run, or run out of device memory?"""
     import torch
 
     try:
-        train_step_cost(shape, bf16)
+        train_step_cost(shape, bf16, remat=remat, reps=0)
         return True
     except torch.cuda.OutOfMemoryError:
         torch.cuda.empty_cache()
         return False
 
 
+# the footprints the planner's constants hold: (model, remat)
+PLAN_VARIANTS = (("bn", False), ("bn", True), ("plain", False), ("plain", True))
+
+
 def phase_planner(root: Path) -> dict:
-    """The card's numbers behind the planner's constants: the BN train
-    step's peak memory at two batch shapes (fixed part and bytes per
-    pixel, f32 and bf16), checked at a third; its rate in Mpx/s; one
-    launch's cost by ``measure_launch_cost_mpx``; the per-launch cap that
-    ``max_launch_pixels`` gives, which must admit every launch the auto
-    train phase plans; and, in f32, a step at 95% of the cap (must run)
-    and at 115% (the cap's reason: it should not)."""
+    """The card's numbers behind the planner's constants: the train step's
+    peak memory at two batch shapes (fixed part and bytes per pixel) for
+    the BN and the plain model, with and without remat, f32 and bf16,
+    each checked at a third shape; the BN step's rate in Mpx/s; one
+    launch's cost by ``measure_launch_cost_mpx``; the per-launch cap of
+    the train CLI's default (BN model, --remat auto: the remat
+    footprint), which must admit every launch the auto train phase plans;
+    and, in f32 with remat, a step at 95% of it (must run) and at 115%.
+    Every constant of cli/common.py is held against this run's fit: any
+    off by more than 10% fails the phase, after all are printed."""
     import torch
 
     from can_tpu_torch.cli import common
     from can_tpu_torch.data import CrowdDataset, ShardedBatcher
 
     total = torch.cuda.mem_get_info()[1]
-    caps = {}
-    for tag in ("f32", "bf16"):
-        bf16 = tag == "bf16"
-        (p1, t1), (p2, t2) = (train_step_cost(s, bf16) for s in PLAN_FIT_SHAPES)
-        px1, px2 = (b * h * w for b, h, w in PLAN_FIT_SHAPES)
-        per_px = (p2 - p1) / (px2 - px1)
-        fixed = p2 - per_px * px2
-        ms_per_mpx = (t2 - t1) / ((px2 - px1) / 1e6)
-        rate = px2 / 1e6 / (t2 / 1e3)
-        pc, tc = train_step_cost(PLAN_CHECK_SHAPE, bf16)
-        pxc = PLAN_CHECK_SHAPE[0] * PLAN_CHECK_SHAPE[1] * PLAN_CHECK_SHAPE[2]
-        predicted = fixed + per_px * pxc
-        cap_fit = (0.92 * total - fixed) / per_px
-        cap = common.max_launch_pixels(bf16=bf16, device="cuda")
-        caps[tag] = cap
-        log(f"[planner] {tag} BN train step peak memory: {p1 / 2 ** 30:.3f} GiB "
-            f"at {PLAN_FIT_SHAPES[0]}, {p2 / 2 ** 30:.3f} GiB at "
-            f"{PLAN_FIT_SHAPES[1]} -> fixed {fixed:.0f} B + {per_px:.1f} B/px; "
-            f"at {PLAN_CHECK_SHAPE} {pc / 2 ** 30:.3f} GiB, the fit says "
-            f"{predicted / 2 ** 30:.3f} GiB ({100 * (predicted / pc - 1):+.1f}%)")
-        log(f"[planner] {tag} step time {t1:.2f} / {t2:.2f} / {tc:.2f} ms at "
-            f"the three shapes: {rate:.2f} Mpx/s at {PLAN_FIT_SHAPES[1]}, "
-            f"{ms_per_mpx:.3f} ms/Mpx + {t2 - ms_per_mpx * px2 / 1e6:.2f} ms "
-            f"fixed per step by the two-shape fit")
-        log(f"[planner] {tag} max_launch_pixels: {cap / 1e6:.2f} Mpx from "
-            f"cli/common.py's constants (fixed {common.TRAIN_FIXED_BYTES[tag]:.0f} "
-            f"B, {common.TRAIN_BYTES_PER_PX[tag]:.1f} B/px), {cap_fit / 1e6:.2f} "
-            f"Mpx from this run's fit, at 0.92 of {total / 2 ** 30:.2f} GiB")
-        if abs(predicted / pc - 1) > PLAN_FIT_RTOL:
-            fail(f"{tag}: the memory fit misses {PLAN_CHECK_SHAPE} by more than "
-                 f"{PLAN_FIT_RTOL:.0%}")
-        if abs(cap / cap_fit - 1) > PLAN_FIT_RTOL:
-            fail(f"{tag}: cli/common.py's cap {cap / 1e6:.2f} Mpx is off this "
-                 f"run's {cap_fit / 1e6:.2f} Mpx by more than {PLAN_FIT_RTOL:.0%}: "
-                 f"the constants are stale")
+    stale = []
+    for model, remat in PLAN_VARIANTS:
+        what = f"{model} model, remat {'on' if remat else 'off'}"
+        for tag in ("f32", "bf16"):
+            bf16 = tag == "bf16"
+            kw = dict(batch_norm=model == "bn", remat=remat)
+            (p1, t1), (p2, t2) = (train_step_cost(s, bf16, **kw)
+                                  for s in PLAN_FIT_SHAPES)
+            px1, px2 = (b * h * w for b, h, w in PLAN_FIT_SHAPES)
+            per_px = (p2 - p1) / (px2 - px1)
+            fixed = p2 - per_px * px2
+            ms_per_mpx = (t2 - t1) / ((px2 - px1) / 1e6)
+            rate = px2 / 1e6 / (t2 / 1e3)
+            pc, tc = train_step_cost(PLAN_CHECK_SHAPE, bf16, **kw)
+            pxc = PLAN_CHECK_SHAPE[0] * PLAN_CHECK_SHAPE[1] * PLAN_CHECK_SHAPE[2]
+            predicted = fixed + per_px * pxc
+            cap_fit = (0.92 * total - fixed) / per_px
+            cfixed, cper_px = common.train_footprint(bf16=bf16, **kw)
+            cap = common.max_launch_pixels(bf16=bf16, device="cuda", **kw)
+            log(f"[planner] {tag} {what}: train step peak memory "
+                f"{p1 / 2 ** 30:.3f} GiB at {PLAN_FIT_SHAPES[0]}, "
+                f"{p2 / 2 ** 30:.3f} GiB at {PLAN_FIT_SHAPES[1]} -> fixed "
+                f"{fixed:.0f} B + {per_px:.1f} B/px; at {PLAN_CHECK_SHAPE} "
+                f"{pc / 2 ** 30:.3f} GiB, the fit says {predicted / 2 ** 30:.3f} "
+                f"GiB ({100 * (predicted / pc - 1):+.1f}%)")
+            log(f"[planner] {tag} {what}: step time {t1:.2f} / {t2:.2f} / "
+                f"{tc:.2f} ms at the three shapes: {rate:.2f} Mpx/s at "
+                f"{PLAN_FIT_SHAPES[1]}, {ms_per_mpx:.3f} ms/Mpx + "
+                f"{t2 - ms_per_mpx * px2 / 1e6:.2f} ms fixed per step")
+            log(f"[planner] {tag} {what}: max_launch_pixels {cap / 1e6:.2f} Mpx "
+                f"from cli/common.py's constants (fixed {cfixed:.0f} B, "
+                f"{cper_px:.1f} B/px), {cap_fit / 1e6:.2f} Mpx from this run's "
+                f"fit, at 0.92 of {total / 2 ** 30:.2f} GiB")
+            if abs(predicted / pc - 1) > PLAN_FIT_RTOL:
+                stale.append(f"{tag} {what}: the memory fit misses "
+                             f"{PLAN_CHECK_SHAPE} by more than {PLAN_FIT_RTOL:.0%}")
+            if abs(cap / cap_fit - 1) > PLAN_FIT_RTOL:
+                stale.append(f"{tag} {what}: cli/common.py's cap {cap / 1e6:.2f} "
+                             f"Mpx is off this run's {cap_fit / 1e6:.2f} Mpx by "
+                             f"more than {PLAN_FIT_RTOL:.0%}: the constants are "
+                             f"stale")
+    if stale:
+        fail("[planner] " + "; ".join(stale))
     probe = common.measure_launch_cost_mpx("cuda")
     log(f"[planner] measure_launch_cost_mpx: {probe:.6f} Mpx "
         f"({probe / common.MODEL_MPX_PER_S * 1e3:.4f} ms per synchronised launch "
         f"at {common.MODEL_MPX_PER_S} Mpx/s); cli/common.py's default "
         f"--launch-cost-mpx {common.DEFAULT_LAUNCH_COST_MPX}")
-    # the cap against what the auto phase will train, and against the card
+    # the train CLI's cap (BN model, --remat auto) against what the auto
+    # phase will train, and against the card
     ds = CrowdDataset(str(root / "train_data" / "images"),
                       str(root / "train_data" / "ground_truth"))
+    caps = {tag: common.max_launch_pixels(bf16=tag == "bf16", device="cuda",
+                                          remat=True) for tag in ("f32", "bf16")}
     for tag, cap in caps.items():
         sched = ShardedBatcher(ds, TRAIN_BATCH, seed=SEED, pad_multiple="auto",
                                max_buckets=24, remnant_sizes=True,
@@ -1360,25 +1428,27 @@ def phase_planner(root: Path) -> dict:
         if biggest > cap:
             fail(f"{tag}: the cap {cap / 1e6:.2f} Mpx refuses a launch the "
                  f"smoke trains ({biggest / 1e6:.2f} Mpx)")
-        log(f"[planner] {tag}: the cap admits every launch the auto phase "
-            f"trains (largest {biggest / 1e6:.2f} Mpx)")
+        log(f"[planner] {tag}: the train CLI's cap (remat footprint) "
+            f"{cap / 1e6:.2f} Mpx admits every launch the auto phase trains "
+            f"(largest {biggest / 1e6:.2f} Mpx)")
     w = 1536
     for frac in (0.95, 1.15):
         b = 4
         h = int(frac * caps["f32"] / (b * w)) // 8 * 8
-        ran = fits_on_card((b, h, w), bf16=False)
-        log(f"[planner] f32 step at {(b, h, w)} = {b * h * w / 1e6:.2f} Mpx "
-            f"({100 * b * h * w / caps['f32']:.0f}% of the cap): "
-            f"{'ran' if ran else 'out of device memory'}")
+        ran = fits_on_card((b, h, w), bf16=False, remat=True)
+        log(f"[planner] f32 step with remat at {(b, h, w)} = "
+            f"{b * h * w / 1e6:.2f} Mpx ({100 * b * h * w / caps['f32']:.0f}% of "
+            f"the cap): {'ran' if ran else 'out of device memory'}")
         if frac < 1 and not ran:
             fail("a launch the cap admits ran out of device memory")
     return {"caps": caps, "probe_mpx": probe}
 
 
-def train_auto(root: Path, work: Path, bf16: bool) -> dict:
-    """The train CLI at its default --pad-multiple auto, one whole epoch;
-    the BN kernels must launch 16 times per step of the planned schedule,
-    the context kernel once per step and per eval batch."""
+def train_auto(root: Path, work: Path, bf16: bool, extra=()) -> dict:
+    """The train CLI at its default --pad-multiple auto (with ``extra``
+    flags), one whole epoch; the BN kernels must launch 16 times per step
+    of the planned schedule, the context kernel once per step and per
+    eval batch."""
     import math
 
     from can_tpu_torch.cli import train as cli
@@ -1386,10 +1456,10 @@ def train_auto(root: Path, work: Path, bf16: bool) -> dict:
     from can_tpu_torch.ops import cuda_context as cc
 
     tag = "bf16" if bf16 else "f32"
-    ckpt = work / f"ckpt_auto_{tag}"
+    ckpt = work / f"ckpt_auto_{tag}{''.join(extra).replace('-', '_')}"
     argv = ["--data_root", str(root), "--syncBN", "--bn-impl", "kernel",
             "--batch-size", str(TRAIN_BATCH), "--epochs", "1", "--lr", "1e-6",
-            "--seed", str(SEED), "--checkpoint-dir", str(ckpt)]
+            "--seed", str(SEED), "--checkpoint-dir", str(ckpt), *extra]
     args = cli.parse_args(argv + (["--bf16"] if bf16 else []))
     if (args.pad_multiple, args.max_buckets) != ("auto", 24):
         fail(f"the train CLI's defaults are --pad-multiple "
@@ -1546,6 +1616,680 @@ def phase_slice5(work: Path) -> dict:
     phase_planner(root)
     return {"context": context, **bn}
 
+# -- slice 6: determinism, remat, s2d, VGG-16 init, prepare_data, golden ----
+DET_STEPS = 3
+# the determinism runs' settings: PyTorch's defaults and each candidate alone
+DET_MODES = {
+    "off": "PyTorch's defaults: cuDNN's default algorithms, no deterministic "
+           "algorithms, ATen's adaptive pool",
+    "cudnn": "cudnn.deterministic alone (ATen's adaptive pool)",
+    "pool": "the matrix adaptive pool alone (cuDNN's defaults)",
+    "on": "use_deterministic(): all of them, fill_uninitialized_memory off",
+    "on+fill": "use_deterministic() with fill_uninitialized_memory on",
+}
+# tests/test_golden.py's committed GOLDEN_MAE (the JAX package's 10-epoch
+# f32 and bf16 trajectories on its seeded synthetic set, 8-device CPU
+# mesh), copied here: this script imports no test
+GOLDEN_MAE = {
+    "f32": [20.8517, 20.3003, 19.5731, 18.8142, 18.0385,
+            17.2353, 16.4846, 15.9598, 15.4430, 14.9687],
+    "bf16": [20.8531, 20.3056, 19.5807, 18.8183, 18.0424,
+             17.2430, 16.4778, 15.9605, 15.4432, 14.9572],
+}
+GOLDEN_RTOL = {"f32": 0.01, "bf16": 0.05}  # bf16: reported, not gated
+# [s2d]: the folded stem conv against the plain one (max error over the
+# map's max); the whole forward at the model tolerance of
+# tests/test_model.py (f32: the two forwards differ at the model's own
+# f32 noise, ~1e-5 of the map, after 16 layers) and, in bf16, 5% of the
+# map's scale (tests/test_torch_model.py's bf16 band)
+S2D_RTOL = {"f32": 1e-5, "bf16": 2e-2}
+MODEL_TOL = (1e-3, 1e-4)
+S2D_MODEL_BF16 = 5e-2
+# [prepare]: a ShanghaiTech-layout set with .mat annotations, PNG images
+PREP_SIZES = ((256, 320), (320, 256), (264, 344))
+PREP_TRAIN_ITEMS, PREP_TEST_ITEMS = 12, 4
+
+
+def _aten_adaptive_pool(x, output_size):
+    """The earlier adaptive pool (ATen's, whose CUDA backward deterministic mode
+    refuses): the comparison's 'off' side only."""
+    import torch.nn.functional as F
+
+    return F.adaptive_avg_pool2d(x.permute(0, 3, 1, 2), output_size).permute(0, 2, 3, 1)
+
+
+def set_det_mode(mode: str) -> None:
+    """Process settings of one ``DET_MODES`` entry; the adaptive pool of
+    the model's context block is swapped for ATen's where the mode says."""
+    import torch
+
+    from can_tpu_torch.device import use_deterministic
+    from can_tpu_torch.models import cannet
+    from can_tpu_torch.ops import pooling
+
+    if mode.startswith("on"):
+        use_deterministic()
+        torch.utils.deterministic.fill_uninitialized_memory = mode == "on+fill"
+    else:
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.deterministic = mode == "cudnn"
+        torch.backends.cudnn.benchmark = False
+    cannet.adaptive_avg_pool2d = (
+        pooling.adaptive_avg_pool2d if mode in ("pool", "on", "on+fill")
+        else _aten_adaptive_pool)
+
+
+def det_train(batch, bf16: bool, *, steps: int = DET_STEPS, model_kw=None):
+    """``steps`` BN-model train steps from the seed on one batch; returns
+    every loss, parameter, momentum buffer and buffer (running stats,
+    batch counts), cloned."""
+    import torch
+
+    from can_tpu_torch.ops import bn_moments as bm
+    from can_tpu_torch.train import make_train_step
+
+    state = _state(**(model_kw or {}))
+    step = make_train_step(compute_dtype=torch.bfloat16 if bf16 else None,
+                           bn_ops=bm.make_bn_ops("kernel"))
+    losses = [step(state, batch)[1]["loss"] for _ in range(steps)]
+    torch.cuda.synchronize()
+    snap = {"loss": torch.stack(losses)}
+    for k, p in state.model.named_parameters():
+        snap[f"param {k}"] = p.detach().clone()
+        snap[f"momentum {k}"] = state.optimizer.state[p]["momentum_buffer"].clone()
+    for k, b in state.model.named_buffers():
+        snap[f"buffer {k}"] = b.clone()
+    return snap
+
+
+def snap_diff(a: dict, b: dict):
+    """(names whose tensors differ bitwise, the largest abs difference)."""
+    import torch
+
+    bad = [k for k in a if not torch.equal(a[k], b[k])]
+    worst = max((float((a[k].double() - b[k].double()).abs().max()) for k in bad),
+                default=0.0)
+    return bad, worst
+
+
+def fill_checks() -> None:
+    """The kernels against their plain versions with every torch.empty
+    filled with NaN: a kernel that reads memory it never wrote fails."""
+    import torch
+
+    from can_tpu_torch.ops import cuda_context as cc
+
+    set_det_mode("on+fill")
+    g = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    b, h, w, c = CONTEXT_SHAPES[1]
+    fv32 = torch.randn((b, h, w, c), generator=g, device="cuda")
+    aves32 = [torch.randn((b, s, s, c), generator=g, device="cuda") for s in cc.SCALES]
+    ws32 = [torch.randn((c, c), generator=g, device="cuda") / c ** 0.5 for _ in cc.SCALES]
+    for name, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        fv = fv32.to(dt)
+        avew, uh, wmat = cc.pack_inputs(fv, [a.to(dt) for a in aves32],
+                                        [x.to(dt) for x in ws32], (h, w))
+        got = cc.context_tail_cuda(fv, avew, uh, wmat).float()
+        want = cc.context_tail_reference(fv, avew, uh, wmat).float()
+        rtol, atol = TOL[name]
+        if not bool(((got - want).abs() <= atol + rtol * want.abs()).all()):
+            fail(f"[determinism] context_fused {CONTEXT_SHAPES[1]} {name} with "
+                 f"fill_uninitialized_memory on: off its plain version")
+    n = 0
+    for shape, count, name, y, m, g1, g2 in bn_cases():
+        check_bn_kernels(y, m, g1, g2, name, f"{shape} {name} (memory filled)")
+        n += 1
+    log(f"[determinism] fill_uninitialized_memory on: context_fused at "
+        f"{CONTEXT_SHAPES[1]} f32 and bf16 and both BN kernels at {n} "
+        f"(shape, dtype) cases match their plain versions (no read of "
+        f"unwritten memory)")
+    set_det_mode("on")
+
+
+def refusal_probe(batch) -> None:
+    """One f32 BN step under deterministic mode with ATen's adaptive pool:
+    the op deterministic mode refuses, by its own message."""
+    import torch
+
+    from can_tpu_torch.models import cannet
+
+    set_det_mode("on")
+    cannet.adaptive_avg_pool2d = _aten_adaptive_pool
+    try:
+        det_train(batch, False, steps=1)
+        log("[determinism] deterministic mode with ATen's adaptive pool: no op "
+            "refused")
+    except RuntimeError as e:
+        first = str(e).strip().splitlines()[0]
+        log(f"[determinism] deterministic mode refuses, with ATen's adaptive "
+            f"pool: {first[:300]}")
+    finally:
+        set_det_mode("on")
+        torch.cuda.synchronize()
+
+
+def det_step_ms(batch, bf16: bool) -> dict:
+    """Step ms (CUDA events, median of 3 warm steps) with each setting, in
+    turns: off, on, on+fill, off, on, on+fill."""
+    import torch
+
+    from can_tpu_torch.ops import bn_moments as bm
+    from can_tpu_torch.train import make_train_step
+
+    state = _state()
+    step = make_train_step(compute_dtype=torch.bfloat16 if bf16 else None,
+                           bn_ops=bm.make_bn_ops("kernel"))
+    times = {m: [] for m in ("off", "on", "on+fill")}
+    for mode in list(times) * 2:
+        set_det_mode(mode)
+        times[mode].append(time_ms(lambda: step(state, batch), reps=3))
+    set_det_mode("on")
+    del state
+    return times
+
+
+def exact_resume(root: Path, work: Path) -> dict:
+    """Two epochs straight against one epoch, its checkpoint and a resume
+    of one more, through the train CLI (f32): the final state and MAE
+    bitwise equal."""
+    import shutil
+
+    import torch
+
+    from can_tpu_torch.cli import train as cli
+    from can_tpu_torch.ops import cuda_bn as cb
+    from can_tpu_torch.ops import cuda_context as cc
+
+    base = ["--data_root", str(root), "--syncBN", "--bn-impl", "kernel",
+            "--batch-size", str(TRAIN_BATCH), "--pad-multiple", str(TRAIN_PAD),
+            "--lr", "1e-6", "--seed", str(SEED)]
+    dirs = {k: work / f"resume_{k}" for k in ("straight", "first", "resumed")}
+    for d in dirs.values():
+        shutil.rmtree(d, ignore_errors=True)
+    cb.reset_launches()
+    cc.reset_launches()  # the main path starts here
+    straight = cli.train(cli.parse_args(base + ["--epochs", "2", "--checkpoint-dir",
+                                                str(dirs["straight"])]))
+    first = cli.train(cli.parse_args(base + ["--epochs", "1", "--checkpoint-dir",
+                                             str(dirs["first"])]))
+    resumed = cli.train(cli.parse_args(base + [
+        "--epochs", "2", "--checkpoint-dir", str(dirs["resumed"]),
+        "--init_checkpoint", str(dirs["first"]), "--allow-config-change"]))
+    launches = {"bn": cb.LAUNCHES, "bn_backward": cb.BACKWARD_LAUNCHES,
+                "context": cc.LAUNCHES}  # ... and ends here
+    steps = straight["steps"] + first["steps"] + resumed["steps"]
+    evals = (straight["eval_batches"] + first["eval_batches"]
+             + resumed["eval_batches"])
+    if launches != {"bn": BN_LAYERS * steps, "bn_backward": BN_LAYERS * steps,
+                    "context": steps + evals}:
+        fail(f"[determinism] resume runs: launches {launches} for {steps} steps "
+             f"and {evals} eval batches")
+    if [r["epoch"] for r in resumed["epochs"]] != [1]:
+        fail(f"[determinism] the resume trained epochs "
+             f"{[r['epoch'] for r in resumed['epochs']]}, want [1]")
+    a = torch.load(dirs["straight"] / "1" / "state.pt", weights_only=True)
+    b = torch.load(dirs["resumed"] / "1" / "state.pt", weights_only=True)
+    bad = [k for k, v in a["model"].items() if not torch.equal(v, b["model"][k])]
+    mom = [i for i, s in a["optimizer"]["state"].items()
+           if not torch.equal(s["momentum_buffer"],
+                              b["optimizer"]["state"][i]["momentum_buffer"])]
+    mae_a, mae_b = straight["epochs"][-1]["mae"], resumed["epochs"][-1]["mae"]
+    if bad or mom or a["step"] != b["step"] or mae_a != mae_b:
+        fail(f"[determinism] 2 epochs straight vs 1 + resume: {len(bad)} model "
+             f"tensors and {len(mom)} momentum buffers differ, step "
+             f"{a['step']} vs {b['step']}, MAE {mae_a!r} vs {mae_b!r}")
+    log(f"[determinism] exact resume (train CLI, f32): 2 epochs straight and 1 "
+        f"epoch + checkpoint + resume of 1 (--allow-config-change for the "
+        f"epochs) give the same {len(a['model'])} model tensors, "
+        f"{len(a['optimizer']['state'])} momentum buffers and step {a['step']} "
+        f"bitwise, MAE {mae_a!r} = {mae_b!r}")
+    return launches
+
+
+def phase_determinism(work: Path) -> dict:
+    """[determinism]: the kernel checks with memory filled; what
+    deterministic mode refuses; the BN step trained twice per setting
+    (f32, bf16), bitwise; step ms with the settings off and on; the exact
+    resume through the train CLI.  Leaves use_deterministic()'s settings
+    on: every later phase runs under them."""
+    root = train_data(work)
+    batch = fixed_batch(root)
+    fill_checks()
+    refusal_probe(batch)
+    for tag in ("f32", "bf16"):
+        bf16 = tag == "bf16"
+        for mode in ("off", "cudnn", "pool", "on"):
+            set_det_mode(mode)
+            bad, worst = snap_diff(det_train(batch, bf16), det_train(batch, bf16))
+            log(f"[determinism] {tag} {mode} ({DET_MODES[mode]}): two trainings "
+                f"of {DET_STEPS} steps at {tuple(batch['image'].shape[:3])} "
+                + ("bitwise equal in every parameter, momentum buffer and "
+                   "running stat" if not bad else
+                   f"differ in {len(bad)} tensors (max abs diff {worst:.3e}; "
+                   f"first: {', '.join(bad[:3])})"))
+            if mode == "on" and bad:
+                fail(f"[determinism] {tag}: training under use_deterministic() "
+                     f"does not repeat itself")
+    for tag in ("f32", "bf16"):
+        t = det_step_ms(batch, tag == "bf16")
+        med = {m: statistics.median(v) for m, v in t.items()}
+        log(f"[determinism] {tag} step ms at {tuple(batch['image'].shape[:3])}, "
+            f"in turns: off (PyTorch's defaults) {' / '.join(f'{x:.2f}' for x in t['off'])}, "
+            f"on {' / '.join(f'{x:.2f}' for x in t['on'])}, on with "
+            f"fill_uninitialized_memory {' / '.join(f'{x:.2f}' for x in t['on+fill'])}"
+            f" (on/off {med['on'] / med['off']:.3f}, fill/on "
+            f"{med['on+fill'] / med['on']:.3f})")
+    set_det_mode("on")
+    launches = exact_resume(root, work)
+    log("[determinism] phases build, kernels, bn and serve ran before this one "
+        "with PyTorch's default settings; every phase from here on "
+        "runs under use_deterministic() (cuDNN deterministic, deterministic "
+        "algorithms, the matrix adaptive pool; CUBLAS_WORKSPACE_CONFIG=:4096:8 "
+        "for the whole run)")
+    return launches
+
+
+def step_grads(batch, bf16: bool, remat: bool):
+    """One BN train step from the seed: its loss, every gradient, the new
+    running stats, peak memory, the launches of the step and its warm ms."""
+    import torch
+
+    from can_tpu_torch.ops import bn_moments as bm
+    from can_tpu_torch.ops import cuda_bn as cb
+    from can_tpu_torch.ops import cuda_context as cc
+    from can_tpu_torch.train import make_train_step
+
+    state = _state()
+    step = make_train_step(compute_dtype=torch.bfloat16 if bf16 else None,
+                           bn_ops=bm.make_bn_ops("kernel"), remat=remat)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cb.reset_launches()
+    cc.reset_launches()  # the main path starts here
+    _, met = step(state, batch)
+    torch.cuda.synchronize()
+    launches = {"bn": cb.LAUNCHES, "bn_backward": cb.BACKWARD_LAUNCHES,
+                "context": cc.LAUNCHES}  # ... and ends here
+    peak = torch.cuda.max_memory_allocated()
+    out = {"loss": met["loss"].clone()}
+    for k, p in state.model.named_parameters():
+        out[f"grad {k}"] = p.grad.clone()
+    for k, b in state.model.named_buffers():
+        out[f"buffer {k}"] = b.clone()
+    ms = time_ms(lambda: step(state, batch), reps=3)
+    del state
+    torch.cuda.empty_cache()
+    return out, launches, peak, ms
+
+
+def phase_remat(work: Path) -> dict:
+    """[remat]: a BN step at the fixed batch with remat on against off,
+    f32 and bf16 — loss, gradients and running stats bitwise equal, each
+    BN layer's running stats advanced once; the launches of one step
+    with remat (the recompute re-runs the BN forward and context kernels);
+    step ms and peak memory; then one f32 step at a shape above the
+    no-remat cap and under the remat cap."""
+    import torch
+
+    from can_tpu_torch.cli import common
+
+    batch = fixed_batch(train_data(work))
+    total = {"bn": 0, "bn_backward": 0, "context": 0}
+    for tag in ("f32", "bf16"):
+        bf16 = tag == "bf16"
+        (off, l_off, p_off, t_off), (on, l_on, p_on, t_on) = (
+            step_grads(batch, bf16, remat) for remat in (False, True))
+        bad, worst = snap_diff(off, on)
+        if bad:
+            fail(f"[remat] {tag}: the step with remat differs from the step "
+                 f"without in {len(bad)} tensors (max abs {worst:.3e}; "
+                 f"{', '.join(bad[:4])})")
+        tracked = {int(v) for k, v in on.items() if k.endswith("num_batches_tracked")}
+        if tracked != {1}:
+            fail(f"[remat] {tag}: num_batches_tracked after one step {tracked}")
+        want_on = {"bn": 2 * BN_LAYERS, "bn_backward": BN_LAYERS, "context": 2}
+        want_off = {"bn": BN_LAYERS, "bn_backward": BN_LAYERS, "context": 1}
+        if l_on != want_on or l_off != want_off:
+            fail(f"[remat] {tag}: launches per step {l_on} with remat, {l_off} "
+                 f"without; want {want_on} and {want_off}")
+        for k in total:
+            total[k] += l_on[k] + l_off[k]
+        px = batch["image"].shape[0] * batch["image"].shape[1] * batch["image"].shape[2]
+        log(f"[remat] {tag} at {tuple(batch['image'].shape[:3])}: loss, "
+            f"{sum(k.startswith('grad') for k in on)} gradients and every "
+            f"running stat bitwise equal with remat on and off (deterministic "
+            f"mode); running stats advanced once (num_batches_tracked 1); "
+            f"launches per step with remat {l_on} (without: {l_off}); step "
+            f"{t_on:.2f} ms with remat, {t_off:.2f} ms without "
+            f"({t_on / t_off:.3f}x); peak memory {p_on / 2 ** 30:.3f} GiB vs "
+            f"{p_off / 2 ** 30:.3f} GiB ({p_on / px:.1f} vs {p_off / px:.1f} "
+            f"B/px, fixed part included)")
+    cap_off = common.max_launch_pixels(bf16=False, device="cuda", remat=False)
+    cap_on = common.max_launch_pixels(bf16=False, device="cuda", remat=True)
+    b, w = 4, 1536
+    h = int((cap_off + cap_on) / 2 / (b * w)) // 8 * 8
+    if not cap_off < b * h * w < cap_on:
+        fail(f"[remat] no shape between the caps {cap_off / 1e6:.2f} and "
+             f"{cap_on / 1e6:.2f} Mpx")
+    peak, ms = train_step_cost((b, h, w), False, remat=True)
+    log(f"[remat] f32 step at {(b, h, w)} = {b * h * w / 1e6:.2f} Mpx, above the "
+        f"no-remat cap {cap_off / 1e6:.2f} Mpx and under the remat cap "
+        f"{cap_on / 1e6:.2f} Mpx: ran with remat, {ms:.1f} ms, peak "
+        f"{peak / 2 ** 30:.3f} GiB of {torch.cuda.mem_get_info()[1] / 2 ** 30:.2f}")
+    return total
+
+
+def phase_s2d(work: Path) -> dict:
+    """[s2d]: the space-to-depth stem against the plain stem on the same
+    He-scaled weights and the fixed batch's images, f32 and bf16 — the
+    stem conv the fold replaces (its output, S2D_RTOL) and the BN model's
+    whole forward in eval mode (the model tolerance: f32 MODEL_TOL, bf16
+    S2D_MODEL_BF16 relative to the map's scale) — and the train step ms
+    of each."""
+    import torch
+
+    from can_tpu_torch.models import CANNet, random_state_dict
+    from can_tpu_torch.ops import bn_moments as bm
+    from can_tpu_torch.ops import cuda_bn as cb
+    from can_tpu_torch.ops import cuda_context as cc
+    from can_tpu_torch.ops.conv import conv2d, depth_to_space, fold_stem_kernel, space_to_depth
+    from can_tpu_torch.train import make_train_step
+
+    batch = fixed_batch(train_data(work))
+    sd = {k: torch.from_numpy(v) for k, v in
+          random_state_dict(SEED, he=True, batch_norm=True).items()}
+    models = {}
+    for s2d in (False, True):
+        m = CANNet(device="cuda", seed=None, batch_norm=True, s2d_stem=s2d)
+        m.load_state_dict(sd)
+        models[s2d] = m.to(memory_format=torch.channels_last).eval()
+    total = {"bn": 0, "bn_backward": 0, "context": 0}
+    for tag in ("f32", "bf16"):
+        dt = torch.bfloat16 if tag == "bf16" else torch.float32
+        x = batch["image"].to(dt)
+        stem = models[False].frontend[0]
+        w, b = stem.weight.to(dt), stem.bias.to(dt)
+        with torch.inference_mode():
+            plain = conv2d(x, w, b).float()
+            wp, bp = fold_stem_kernel(w, b)
+            folded = depth_to_space(conv2d(space_to_depth(x), wp, bp)).float()
+            stem_rel = float((folded - plain).abs().max() / plain.abs().max())
+            full = [models[s](batch["image"], compute_dtype=dt).float()
+                    for s in (False, True)]
+        full_rel = float((full[1] - full[0]).abs().max() / full[0].abs().max())
+        if not bool(torch.isfinite(folded).all()) or stem_rel > S2D_RTOL[tag]:
+            fail(f"[s2d] {tag}: the folded stem conv is off the plain one by "
+                 f"{stem_rel:.3e} (tolerance {S2D_RTOL[tag]})")
+        if tag == "f32":
+            rtol, atol = MODEL_TOL
+            model_ok = bool(((full[1] - full[0]).abs()
+                             <= atol + rtol * full[0].abs()).all())
+        else:
+            model_ok = full_rel <= S2D_MODEL_BF16
+        if not (model_ok and bool(torch.isfinite(full[1]).all())):
+            fail(f"[s2d] {tag}: the forward with the folded stem is off the "
+                 f"plain stem's by {full_rel:.3e} (max, relative to the map)")
+        times = {}
+        for s2d in (False, True):
+            state = _state(s2d_stem=s2d)
+            step = make_train_step(compute_dtype=dt if tag == "bf16" else None,
+                                   bn_ops=bm.make_bn_ops("kernel"))
+            cb.reset_launches()
+            cc.reset_launches()  # the main path starts here
+            step(state, batch)
+            torch.cuda.synchronize()
+            for k, n in (("bn", cb.LAUNCHES), ("bn_backward", cb.BACKWARD_LAUNCHES),
+                         ("context", cc.LAUNCHES)):  # ... and ends here
+                total[k] += n
+            times[s2d] = time_ms(lambda: step(state, batch), reps=3)
+            del state
+        log(f"[s2d] {tag} at {tuple(batch['image'].shape[:3])}: the folded stem "
+            f"conv against the plain one, max rel err {stem_rel:.3e} (tolerance "
+            f"{S2D_RTOL[tag]}); the BN model's forward with it against the "
+            f"plain stem's, max rel err {full_rel:.3e} ("
+            + (f"rtol {MODEL_TOL[0]} / atol {MODEL_TOL[1]}" if tag == "f32"
+               else f"tolerance {S2D_MODEL_BF16}")
+            + f"); train step {times[True]:.2f} ms with --s2d-stem, "
+            f"{times[False]:.2f} ms without")
+    return total
+
+
+def phase_vgg16(work: Path) -> dict:
+    """[vgg16]: the train CLI with --vgg16-npz on a seeded .npz in
+    tools/convert_vgg16.py's layout, one step at lr 0: the checkpoint's
+    frontend convs are the .npz's bit for bit and the BN parameters are
+    the init's."""
+    import torch
+
+    from can_tpu_torch.cli import train as cli
+    from can_tpu_torch.ops import cuda_bn as cb
+    from can_tpu_torch.ops import cuda_context as cc
+
+    root = train_data(work)
+    rng = np.random.default_rng(SEED + 16)
+    npz, cin, i = work / "vgg16_seeded.npz", 3, 0
+    arrays = {}
+    for v in (64, 64, "M", 128, 128, "M", 256, 256, 256, "M", 512, 512, 512):
+        if v == "M":
+            continue
+        arrays[f"conv{i}_w"] = (rng.standard_normal((3, 3, cin, v)) *
+                                np.sqrt(2 / (9 * cin))).astype(np.float32)
+        arrays[f"conv{i}_b"] = (rng.standard_normal(v) * 0.01).astype(np.float32)
+        cin, i = v, i + 1
+    np.savez(npz, **arrays)
+    ckpt = work / "ckpt_vgg16"
+    args = cli.parse_args(["--data_root", str(root), "--syncBN", "--bn-impl", "kernel",
+                           "--batch-size", str(TRAIN_BATCH), "--pad-multiple",
+                           str(TRAIN_PAD), "--epochs", "1", "--max-steps-per-epoch",
+                           "1", "--lr", "0", "--seed", str(SEED),
+                           "--checkpoint-dir", str(ckpt), "--vgg16-npz", str(npz)])
+    cb.reset_launches()
+    cc.reset_launches()  # the main path starts here
+    summary = cli.train(args)
+    launches = {"bn": cb.LAUNCHES, "bn_backward": cb.BACKWARD_LAUNCHES,
+                "context": cc.LAUNCHES}  # ... and ends here
+    sd = torch.load(ckpt / "0" / "state.pt", weights_only=True)["model"]
+    convs = [k[:-len(".weight")] for k in sd if k.startswith("frontend.")
+             and k.endswith(".weight") and sd[k].dim() == 4]
+    for j, k in enumerate(convs):
+        w = torch.from_numpy(arrays[f"conv{j}_w"]).permute(3, 2, 0, 1)
+        if not (torch.equal(sd[f"{k}.weight"].cpu(), w)
+                and torch.equal(sd[f"{k}.bias"].cpu(),
+                                torch.from_numpy(arrays[f"conv{j}_b"]))):
+            fail(f"[vgg16] {k} is not conv{j} of {npz.name}")
+    bn_w = [k for k in sd if k.startswith("frontend.") and k.endswith(".weight")
+            and sd[k].dim() == 1]
+    if not all(bool((sd[k] == 1).all()) for k in bn_w):
+        fail("[vgg16] the BN scales moved")
+    if summary["steps"] != 1 or launches["bn"] != BN_LAYERS:
+        fail(f"[vgg16] {summary['steps']} steps, launches {launches}")
+    log(f"[vgg16] train CLI --vgg16-npz {npz.name} (seeded, HWIO), one step at "
+        f"lr 0: the checkpoint's {len(convs)} frontend convs equal the .npz's "
+        f"bit for bit, its {len(bn_w)} frontend BN scales are the init's; "
+        f"loss {summary['epochs'][-1]['train_loss']:.6g}, launches {launches}")
+    return launches
+
+
+def run_tool(module: str, argv, tag: str, timeout: int = 300) -> str:
+    """``python -m <module> <argv>`` from the checkout's root, waited for;
+    its standard output, or a failure naming the tool."""
+    proc = subprocess.run([sys.executable, "-m", module, *argv], cwd=ROOT,
+                          capture_output=True, text=True, timeout=timeout)
+    if proc.returncode != 0:
+        fail(f"{tag} python -m {module} {' '.join(argv)} exited "
+             f"{proc.returncode}: {proc.stderr.strip()[-1500:]}")
+    return proc.stdout
+
+
+def make_prepare_data(work: Path) -> Path:
+    """A ShanghaiTech-layout set written here: PNG images (the card's
+    machine has no JPEG decoder) and GT_IMG_*.mat head annotations as
+    scipy writes the real ones, no density maps."""
+    import shutil
+
+    import scipy.io as sio
+
+    from can_tpu_torch.data.imageio import write_png
+
+    root = work / "prep"
+    shutil.rmtree(root, ignore_errors=True)
+    rng = np.random.default_rng(SEED + 21)
+    for split, n in (("train", PREP_TRAIN_ITEMS), ("test", PREP_TEST_ITEMS)):
+        img_dir, gt_dir = root / f"{split}_data" / "images", root / f"{split}_data" / "ground_truth"
+        img_dir.mkdir(parents=True)
+        gt_dir.mkdir(parents=True)
+        for i in range(n):
+            h, w = PREP_SIZES[int(rng.integers(len(PREP_SIZES)))]
+            pts = np.stack([rng.uniform(0, w, 30), rng.uniform(0, h, 30)], axis=1)
+            img = (rng.uniform(0, 1, (h, w, 3)) * 255).astype(np.uint8)
+            for c, r in pts.astype(int):
+                img[max(0, r - 3):r + 4, max(0, c - 3):c + 4] = 255
+            write_png(str(img_dir / f"IMG_{i}.png"), img)
+            inner = np.empty((1, 1), object)
+            inner[0, 0] = (pts,)
+            sio.savemat(gt_dir / f"GT_IMG_{i}.mat", {"image_info": inner})
+    return root
+
+
+def phase_prepare(work: Path) -> dict:
+    """[prepare]: ``python -m can_tpu_torch.tools.prepare_data --prepared``
+    on seeded .mat data, then ``--verify-store`` (each its own process,
+    as a user runs them), then one auto epoch of the train CLI reading
+    that store (``--prepared-root``, which must validate)."""
+    import math
+
+    from can_tpu_torch.cli import train as cli
+    from can_tpu_torch.ops import cuda_bn as cb
+    from can_tpu_torch.ops import cuda_context as cc
+
+    root = make_prepare_data(work)
+    store = work / "prep_store"
+    outs = []
+    for argv in (["--root", str(root), "--prepared", "--prepared-out", str(store),
+                  "--quiet"],
+                 ["--root", str(root), "--verify-store", "--prepared-out",
+                  str(store), "--quiet"]):
+        out = run_tool("can_tpu_torch.tools.prepare_data", argv, "[prepare]")
+        outs.append(" | ".join(out.strip().splitlines()))
+    n = PREP_TRAIN_ITEMS + PREP_TEST_ITEMS
+    if f"wrote {n} density maps" not in outs[0] or outs[1].count("verified") != 2:
+        fail(f"[prepare] unexpected output: {outs}")
+    ckpt = work / "ckpt_prep"
+    args = cli.parse_args(["--data_root", str(root), "--syncBN", "--bn-impl",
+                           "kernel", "--batch-size", "4", "--epochs", "1",
+                           "--lr", "1e-6", "--seed", str(SEED), "--prepared-root",
+                           str(store), "--checkpoint-dir", str(ckpt)])
+    cb.reset_launches()
+    cc.reset_launches()  # the main path starts here
+    summary = cli.train(args)
+    launches = {"bn": cb.LAUNCHES, "bn_backward": cb.BACKWARD_LAUNCHES,
+                "context": cc.LAUNCHES}  # ... and ends here
+    row = summary["epochs"][-1]
+    steps = summary["schedule_steps"]
+    if (summary["steps"] != steps or launches["bn"] != BN_LAYERS * steps
+            or not math.isfinite(row["mae"])):
+        fail(f"[prepare] auto epoch from the store: {summary['steps']} of {steps} "
+             f"steps, launches {launches}, MAE {row['mae']!r}")
+    log(f"[prepare] prepare_data --prepared: {outs[0]}; --verify-store: "
+        f"{outs[1]}; one auto epoch from that store (--prepared-root): {steps} "
+        f"steps, loss {row['train_loss']:.6g}, MAE {row['mae']:.6g}, launches "
+        f"{launches}")
+    return launches
+
+
+def phase_legacy(work: Path) -> dict:
+    """A --plan-mode legacy auto epoch on the wild set, beside the cost
+    mode's plan of the same set."""
+    from can_tpu_torch.cli import common
+    from can_tpu_torch.data import CrowdDataset, ShardedBatcher
+
+    root = work / "auto"
+    run = train_auto(root, work, False, extra=["--plan-mode", "legacy"])
+    ds = CrowdDataset(str(root / "train_data" / "images"),
+                      str(root / "train_data" / "ground_truth"))
+    cost = ShardedBatcher(ds, TRAIN_BATCH, seed=SEED, pad_multiple="auto",
+                          max_buckets=24, remnant_sizes=True,
+                          launch_cost_px=common.DEFAULT_LAUNCH_COST_MPX * 1e6,
+                          max_launch_px=common.max_launch_pixels(
+                              bf16=False, device="cuda", remat=True))
+    log(f"[train] auto f32 --plan-mode legacy: {run['schedule_steps']} steps "
+        f"(cost mode plans {cost.batches_per_epoch(0)} for the same set)")
+    out = work / "plan_ablation.json"
+    run_tool("can_tpu_torch.tools.plan_ablation",
+             ["--out", str(out), "--repeats", "1"], "[plan_ablation]")
+    doc = json.loads(out.read_text())
+    if not all(r["predicted_eq_realized"] for r in doc["results"]):
+        fail("[plan_ablation] a plan's predicted cost differs from its schedule's")
+    head = doc["headline"]
+    log(f"[plan_ablation] python -m can_tpu_torch.tools.plan_ablation: "
+        f"{len(doc['results'])} candidates; b16 schedule overhead legacy at 2.0 "
+        f"Mpx {head['baseline_legacy_tunnel_pricing']['schedule_overhead']}, cost "
+        f"at 2.0 Mpx {head['cost_planner_same_pricing']['schedule_overhead']}, "
+        f"cost at the card's price "
+        f"{head['cost_planner_device_pricing']['schedule_overhead']} "
+        f"({head['config']})")
+    return run["launches"]
+
+
+def phase_golden(work: Path) -> dict:
+    """[golden]: tests/test_golden.py's recipe on the card — the plain
+    model from seed 0, the seeded synthetic set (24 + 8 items at 64x64 and
+    64x96, seeds 42 and 43), global batch 8, 10 epochs, lr 2e-6 x 8 on a
+    loss divided by 8 (JAX's dp = 8 mesh as one process) — against the
+    JAX goldens: f32 within 1%, bf16 reported against 5%."""
+    import torch
+
+    from can_tpu_torch.data import CrowdDataset, ShardedBatcher, make_synthetic_dataset
+    from can_tpu_torch.data.prefetch import DevicePut
+    from can_tpu_torch.models import CANNet
+    from can_tpu_torch.ops import cuda_context as cc
+    from can_tpu_torch.train import (
+        create_train_state,
+        evaluate,
+        make_eval_step,
+        make_lr_schedule,
+        make_train_step,
+        train_one_epoch,
+    )
+
+    root = work / "golden"
+    tr = make_synthetic_dataset(str(root / "data"), 24, sizes=((64, 64), (64, 96)), seed=42)
+    te = make_synthetic_dataset(str(root / "test"), 8, sizes=((64, 64),), seed=43)
+    train_b = ShardedBatcher(CrowdDataset(*tr, phase="train"), 8, shuffle=True, seed=0)
+    test_b = ShardedBatcher(CrowdDataset(*te, phase="test"), 8, shuffle=False, seed=0)
+    put = DevicePut(torch.device("cuda"))
+    launches = 0
+    for tag in ("f32", "bf16"):
+        dt = torch.bfloat16 if tag == "bf16" else None
+        model = CANNet(device="cuda", seed=0).to(memory_format=torch.channels_last)
+        state = create_train_state(model, make_lr_schedule(2e-6, world_size=8))
+        step, ev = make_train_step(grad_divisor=8, compute_dtype=dt), make_eval_step(compute_dtype=dt)
+        cc.reset_launches()  # the main path starts here
+        maes, steps, batches = [], 0, 0
+        for epoch in range(10):
+            state, st = train_one_epoch(step, state, train_b.epoch(epoch),
+                                        put_fn=put, epoch=epoch, prefetch=put.depth)
+            m = evaluate(ev, state.model, test_b.epoch(0), put_fn=put,
+                         dataset_size=test_b.dataset_size, prefetch=put.depth)
+            maes.append(m["mae"])
+            steps, batches = steps + st.steps, batches + m["batches"]
+        n = cc.LAUNCHES  # ... and ends here
+        if n != steps + batches:
+            fail(f"[golden] {tag}: context_fused launched {n} times for {steps} "
+                 f"steps and {batches} eval batches")
+        launches += n
+        rel = max(abs(a - b) / b for a, b in zip(maes, GOLDEN_MAE[tag]))
+        log(f"[golden] {tag}: MAE trajectory {[round(x, 4) for x in maes]} against "
+            f"the JAX goldens {GOLDEN_MAE[tag]}: worst epoch rel {rel:.2e} "
+            f"(band {GOLDEN_RTOL[tag]:.0%}{', gated' if tag == 'f32' else ', reported'})")
+        if not all(np.isfinite(maes)) or (tag == "f32" and rel > GOLDEN_RTOL[tag]):
+            fail(f"[golden] {tag}: the trajectory misses the goldens by {rel:.2e}")
+        if not maes[-1] < 0.75 * maes[0]:
+            fail(f"[golden] {tag}: the final MAE {maes[-1]:.4f} is not under 0.75 "
+                 f"x the first {maes[0]:.4f}")
+    return {"bn": 0, "bn_backward": 0, "context": launches}
+
+
 def main(argv) -> int:
     import torch
 
@@ -1568,6 +2312,10 @@ def main(argv) -> int:
     from can_tpu_torch.ops import cuda_context as cc
 
     t_start = time.perf_counter()
+    # the train and eval CLIs turn deterministic mode on (device.py), which
+    # needs this before the process's first cuBLAS call: PyTorch reads it
+    # once, and the phases before the CLIs' use cuBLAS
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)
@@ -1612,14 +2360,19 @@ def main(argv) -> int:
         check_parity(run, dt)  # ends by releasing the engine's weights
     del runs
 
-    train_launches = phase_train(work)  # resets and reads the counts
-    slice5 = phase_slice5(work)  # resets and reads the counts per path
+    # each phase resets and reads the counts around each path it drives
+    paths = {"determinism": phase_determinism(work),
+             "train": phase_train(work), "remat": phase_remat(work),
+             "s2d": phase_s2d(work), "vgg16": phase_vgg16(work),
+             "slice5": phase_slice5(work), "legacy": phase_legacy(work),
+             "prepare": phase_prepare(work), "golden": phase_golden(work)}
+    counts = {k: sum(p[k] for p in paths.values())
+              for k in ("bn", "bn_backward", "context")}
 
     kernels = [{"name": cc.KERNEL, "route": "cuda",
                 "source": "can_tpu_torch/csrc/context_fused.cu",
                 "replaces": "can_tpu/ops/pallas_context.py:143",
-                "launches": (launches + train_launches["context"]
-                             + slice5["context"]),
+                "launches": launches + counts["context"],
                 "max_abs_err": row["max_abs_err"],
                 "ms": row["ms"], "plain_ms": row["plain_ms"],
                 "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
@@ -1627,20 +2380,19 @@ def main(argv) -> int:
                {"name": cb.KERNEL, "route": "cuda",
                 "source": "can_tpu_torch/csrc/bn_moments.cu",
                 "replaces": "can_tpu/ops/pallas_bn.py:104",
-                "launches": train_launches["bn"] + slice5["bn"], **bn["forward"]},
+                "launches": counts["bn"], **bn["forward"]},
                {"name": cb.BACKWARD_KERNEL, "route": "cuda",
                 "source": "can_tpu_torch/csrc/bn_moments.cu",
                 "replaces": "can_tpu/ops/pallas_bn.py:143",
-                "launches": train_launches["bn_backward"] + slice5["bn_backward"],
-                **bn["backward"]}]
+                "launches": counts["bn_backward"], **bn["backward"]}]
     log(f"[smoke] done in {time.perf_counter() - t_start:.1f}s; kernels timed "
         f"at context (8, 96, 128, 512) f32 (bf16: {row['bf16_ms']:.3f} ms), "
-        f"bn_moments and bn_moments_backward {BN_STEP_SHAPES[0][0]} f32; launches: "
-        f"context_fused {launches} serving + {train_launches['context']} "
-        f"training + {slice5['context']} auto training, eval and serving "
-        f"from a checkpoint; bn_moments {train_launches['bn']} + "
-        f"{slice5['bn']} and bn_moments_backward "
-        f"{train_launches['bn_backward']} + {slice5['bn_backward']} training")
+        f"bn_moments and bn_moments_backward {BN_STEP_SHAPES[0][0]} f32; launches "
+        f"by path: context_fused {launches} serving + "
+        + ", ".join(f"{p['context']} {k}" for k, p in paths.items())
+        + "; bn_moments " + ", ".join(f"{p['bn']} {k}" for k, p in paths.items())
+        + "; bn_moments_backward "
+        + ", ".join(f"{p['bn_backward']} {k}" for k, p in paths.items()))
     log(card)  # the card's name and power limit, as nvidia-smi gives them
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
