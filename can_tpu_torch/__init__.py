@@ -10,10 +10,14 @@ plain PyTorch:
   density maps — and convolutions run NCHW in ``torch.channels_last``
   (the same storage, so the permute is free);
 * every entry point takes an explicit device and runs on the card
-  unless the caller asks for the CPU (``device.resolve_device``);
-* the one TPU kernel on the serving path, the fused context tail, is a
-  hand-written CUDA kernel (``csrc/context_fused.cu``, wrapper
-  ``ops/cuda_context.py``) with its plain PyTorch version beside it.
+  (``cuda:LOCAL_RANK``) unless the caller asks for the CPU
+  (``device.resolve_device``);
+* the TPU kernels — the fused context tail and the BN moment sums with
+  their backward — are hand-written CUDA kernels (``csrc/``, wrappers
+  ``ops/cuda_context.py`` and ``ops/cuda_bn.py``), each with its plain
+  PyTorch version beside it;
+* training and evaluation run data-parallel across processes, one per
+  GPU, over ``torch.distributed`` (``parallel/``: DDP, SyncBN).
 
 This package imports torch, numpy and the standard library only — never
 ``jax`` and nothing from ``can_tpu``.

@@ -1,6 +1,6 @@
-"""Shared CLI plumbing: dataset roots, the prepared-store flag, the
-planner's memory cap and launch price (counterpart of
-``can_tpu/cli/common.py:15-110, 381-564``, one GPU).
+"""Shared CLI plumbing: dataset roots, the prepared-store flag, the world
+and each process's batch, the planner's memory cap and launch price
+(counterpart of ``can_tpu/cli/common.py:15-140, 359-564``).
 
 The planner prices launches in pixels.  Its two device numbers are the
 card's own, measured by ``chip_smoke.py``'s ``[planner]`` phase on an
@@ -10,7 +10,9 @@ the batch (``batch * H * W``) for the BN and the plain model, with and
 without remat, and the train step's rate in megapixels per second.  The
 same footprints decide per launch whether to rematerialise
 (``make_remat_policy``).  None of the JAX package's TPU constants is
-used.
+used.  Under several processes every input of the plan (the memory cap,
+the launch price) is agreed across processes before a batcher is built:
+the lockstep schedule needs the same plan on every rank.
 """
 
 from __future__ import annotations
@@ -21,7 +23,15 @@ import statistics
 import time
 from typing import Callable, Optional, Tuple
 
+import numpy as np
 import torch
+
+from can_tpu_torch.parallel import (
+    agree_min_value,
+    make_mesh,
+    process_count,
+    reduce_value,
+)
 
 # Peak memory allocated by one train step (forward, backward, SGD update;
 # weights, momentum and gradients included) = fixed + per_px * batch * H *
@@ -111,6 +121,33 @@ def split_prepared_spec(spec: str, split: str) -> str:
     return os.path.join(spec, split)
 
 
+def build_mesh_and_batch(batch_size: int, sp: int = 1) -> Tuple:
+    """The world as a mesh, and each process's batch: ``(mesh,
+    per_process_batch, dp)``.  ``batch_size`` is per data-parallel replica
+    (the reference's per-GPU batch, train.py:177); the global batch is
+    ``batch_size * dp``.  ``sp > 1`` raises (``parallel.mesh``)."""
+    mesh = make_mesh(sp=sp)
+    dp = mesh.dp
+    global_batch = batch_size * dp
+    nproc = process_count()
+    if global_batch % nproc:
+        raise ValueError(f"global batch {global_batch} not divisible by "
+                         f"process count {nproc}")
+    return mesh, global_batch // nproc, dp
+
+
+def agreed_device_memory_bytes(device) -> Optional[int]:
+    """``device_memory_bytes`` agreed across processes (the minimum), for
+    what feeds the lockstep schedule: every process must derive the same
+    launch cap and remat decisions.  A process with no ceiling (the CPU)
+    makes it None everywhere.  Collective: call it on every process."""
+    mem = device_memory_bytes(device)
+    if process_count() < 2:
+        return mem
+    agreed = float(agree_min_value(np.float64(-1.0 if mem is None else mem)))
+    return None if agreed < 0 else int(agreed)
+
+
 def device_memory_bytes(device) -> Optional[int]:
     """The card's total memory (``torch.cuda.mem_get_info``), or None on
     the CPU, where no ceiling exists."""
@@ -133,24 +170,27 @@ def train_footprint(*, bf16: bool, batch_norm: bool = True,
 
 def max_launch_pixels(*, bf16: bool, device=None, ceiling_frac: float = 0.92,
                       hbm_bytes=_DETECT, batch_norm: bool = True,
-                      remat: bool = False) -> Optional[float]:
-    """Per-launch pixel budget (batch * H * W) for the planner's memory
-    cap: ``(ceiling_frac * memory - fixed) / bytes_per_px`` of the card's
-    fitted train-step footprint for this model, with remat or without
-    (a launch the cap admits only with remat gets it from
-    ``make_remat_policy``).  None on the CPU (a cap there would be
-    fiction and change the schedule).  ``hbm_bytes`` overrides the card's
-    total memory (tests pin it)."""
+                      remat: bool = False, shards: int = 1) -> Optional[float]:
+    """Per-launch pixel budget (global batch * H * W) for the planner's
+    memory cap: ``(ceiling_frac * memory - fixed) / bytes_per_px`` of the
+    card's fitted train-step footprint for this model, with remat or
+    without (a launch the cap admits only with remat gets it from
+    ``make_remat_policy``), times ``shards``: a launch is split across
+    ``shards`` processes (dp), each holding its slice on its own card.
+    None on the CPU (a cap there would be fiction and change the
+    schedule).  ``hbm_bytes`` overrides the card's total memory (tests
+    pin it; multi-process CLIs pass ``agreed_device_memory_bytes``)."""
     mem = device_memory_bytes(device) if hbm_bytes is _DETECT else hbm_bytes
     if mem is None:
         return None
     fixed, per_px = train_footprint(bf16=bf16, batch_norm=batch_norm, remat=remat)
-    return (ceiling_frac * mem - fixed) / per_px
+    return (ceiling_frac * mem - fixed) / per_px * shards
 
 
 def make_remat_policy(flag: str, *, global_batch: int, bf16: bool, device=None,
                       batch_norm: bool = True, budget_frac: float = 0.80,
-                      hbm_bytes=_DETECT, announce: bool = False) -> Callable:
+                      hbm_bytes=_DETECT, announce: bool = False,
+                      shards: int = 1) -> Callable:
     """Per-launch remat decision (``make_remat_policy`` of
     can_tpu/cli/common.py:413): ``policy(hw, batch=None) -> bool``, batch
     defaulting to ``global_batch``.
@@ -158,8 +198,10 @@ def make_remat_policy(flag: str, *, global_batch: int, bf16: bool, device=None,
     ``"on"`` / ``"off"`` decide for every launch.  ``"auto"``: remat is on
     for a launch whose footprint without remat, by the card's fitted
     constants (``train_footprint``), exceeds ``budget_frac`` of the card's
-    memory; off on the CPU, where no ceiling exists.  ``announce`` prints
-    a ``[remat]`` line the first time a launch shape turns it on.
+    memory; off on the CPU, where no ceiling exists.  ``batch`` is the
+    global launch, split across ``shards`` processes: each card holds
+    ``batch / shards`` of it.  ``announce`` prints a ``[remat]`` line the
+    first time a launch shape turns it on.
     """
     if flag not in ("auto", "on", "off"):
         raise ValueError(f"remat is 'auto', 'on' or 'off', got {flag!r}")
@@ -174,7 +216,7 @@ def make_remat_policy(flag: str, *, global_batch: int, bf16: bool, device=None,
 
     def policy(hw, batch=None):
         b = batch or global_batch
-        need = fixed + per_px * b * hw[0] * hw[1]
+        need = fixed + per_px * b * hw[0] * hw[1] / shards
         on = need > budget
         if on and announce and (b, tuple(hw)) not in said:
             said.add((b, tuple(hw)))
@@ -225,13 +267,19 @@ def parse_launch_cost(value):
 
 def resolve_launch_cost_px(spec, device, *, announce: bool = False) -> float:
     """``--launch-cost-mpx`` -> planner pixels: 'auto' measures this
-    device (``measure_launch_cost_mpx``), a number is used as given."""
+    device (``measure_launch_cost_mpx``) and, under several processes,
+    takes the mean across them, so every process prices launches alike
+    (collective then: call it on every process); a number is used as
+    given."""
     if spec == "auto":
         mpx = measure_launch_cost_mpx(device)
+        if process_count() > 1:
+            mpx = float(reduce_value(np.float64(mpx), average=True))
         if announce:
             print(f"[planner] measured launch overhead ~"
                   f"{mpx / MODEL_MPX_PER_S * 1e3:.3f} ms/launch -> launch "
-                  f"cost {mpx:.4f} Mpx")
+                  f"cost {mpx:.4f} Mpx"
+                  + (" (mean across processes)" if process_count() > 1 else ""))
         return mpx * 1e6
     return float(spec) * 1e6
 

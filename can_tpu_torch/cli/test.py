@@ -12,13 +12,19 @@ batched by the same planner as training (``--pad-multiple`` defaults to
 math), loaded on ``--num-workers`` threads and put on the card two
 batches ahead.  ``--platform default`` (or ``gpu``) runs on the CUDA
 device and exits non-zero when there is none; ``--platform cpu`` is the
-explicit CPU run.  Spatial parallelism (``--sp``) and the telemetry,
-trace, incident and SLO flags come with later slices (ROADMAP Queue 1).
+explicit CPU run.  Under a launcher (``torchrun --nproc_per_node=N -m
+can_tpu_torch.cli.test ...``; ``parallel/runtime.py``) each process
+evaluates its slice of every launch (launch sizes are multiples of the
+process count) and the sums are global: the same MAE/MSE as one
+process; ``--show-index`` writes its PNGs on rank 0 only.  Spatial
+parallelism (``--sp``) and the telemetry, trace, incident and SLO flags
+come with later slices (ROADMAP Queue 1).
 """
 
 from __future__ import annotations
 
 import argparse
+import math
 import os
 import time
 from typing import Optional
@@ -39,7 +45,6 @@ from can_tpu_torch.cli.common import (
 from can_tpu_torch.device import (
     PLATFORMS,
     NoCudaDeviceError,
-    resolve_device,
     use_deterministic,
     use_full_f32,
 )
@@ -64,7 +69,8 @@ def parse_args(argv=None):
                    help="evaluate a reference-layout torch checkpoint")
     p.add_argument("--params-npz", type=str, default="",
                    help="evaluate a can_tpu save_params_npz .npz")
-    p.add_argument("--batch-size", type=int, default=1)
+    p.add_argument("--batch-size", type=int, default=1,
+                   help="images per process per launch")
     p.add_argument("--sp", type=int, default=1,
                    help="spatial (image-height) shards: only 1 on this port "
                         "for now")
@@ -79,8 +85,8 @@ def parse_args(argv=None):
     p.add_argument("--out-dir", type=str, default="./eval_out")
     p.add_argument("--platform", type=str, default="default",
                    choices=list(PLATFORMS),
-                   help="default/gpu: the CUDA device (exit non-zero without "
-                        "one); cpu: run on the CPU")
+                   help="default/gpu: the CUDA device cuda:LOCAL_RANK (exit "
+                        "non-zero without it); cpu: run on the CPU")
     p.add_argument("--syncBN", action="store_true",
                    help="the checkpoint is the BatchNorm model")
     p.add_argument("--u8-input", action="store_true",
@@ -190,16 +196,12 @@ def evaluate_checkpoint(args, *, prefetch: Optional[int] = None) -> dict:
     "viz_paths"}``.  ``prefetch``: batches put on the device ahead
     (default: ``DevicePut``'s depth, 2 on the card, 0 on the CPU).
     Raises SystemExit on bad arguments and without the asked-for
-    device."""
-    from can_tpu_torch.data import CrowdDataset, ItemCache, ShardedBatcher, StaleStoreError
-    from can_tpu_torch.data import normalize_host
-    from can_tpu_torch.data.prefetch import DevicePut
-    from can_tpu_torch.train import evaluate, make_eval_step
-    from can_tpu_torch.utils.viz import save_density_visualization
+    device.  Joins the process group a launcher describes and leaves it
+    at the end, unless the caller formed it."""
+    from can_tpu_torch.parallel import init_runtime, runtime_active, shutdown_runtime
 
-    img_root, gt_root = resolve_split_roots(args.split, args.image_root,
-                                            args.gt_root, args.data_root,
-                                            flag_stem="")
+    roots = resolve_split_roots(args.split, args.image_root, args.gt_root,
+                                args.data_root, flag_stem="")
     validate_params_source(args)
     if args.sp != 1:
         raise SystemExit("--sp > 1 (spatial parallelism) is not ported yet: "
@@ -208,10 +210,34 @@ def evaluate_checkpoint(args, *, prefetch: Optional[int] = None) -> dict:
         raise SystemExit("--batch-size must be >= 1")
     if args.item_cache_mb < 0:
         raise SystemExit("--item-cache-mb must be >= 0")
+    owned = not runtime_active()
     try:
-        device = resolve_device(args.platform)
+        topo = init_runtime(platform=args.platform)
     except NoCudaDeviceError as e:
         raise SystemExit(f"[eval] {e}") from None
+    try:
+        return _evaluate(args, roots, torch.device(topo["device"]), prefetch)
+    finally:
+        if owned:
+            shutdown_runtime()
+
+
+def _evaluate(args, roots, device, prefetch) -> dict:
+    from can_tpu_torch.cli.common import build_mesh_and_batch
+    from can_tpu_torch.data import CrowdDataset, ItemCache, ShardedBatcher, StaleStoreError
+    from can_tpu_torch.data import normalize_host
+    from can_tpu_torch.data.prefetch import DevicePut
+    from can_tpu_torch.parallel import (
+        is_main_process,
+        make_dp_eval_step,
+        process_count,
+        process_index,
+    )
+    from can_tpu_torch.train import evaluate
+    from can_tpu_torch.utils.viz import save_density_visualization
+
+    img_root, gt_root = roots
+    main = is_main_process()
     if device.type == "cuda":
         use_deterministic()  # the train CLI's settings: the same eval numbers
         if not args.bf16:
@@ -230,37 +256,44 @@ def evaluate_checkpoint(args, *, prefetch: Optional[int] = None) -> dict:
     except StaleStoreError as e:
         raise SystemExit(f"--prepared-root {args.prepared_root}: {e}") from None
     note = ds.prepared_note
-    print(f"[data] prepared store: "
-          f"{'on' if note['active'] else 'off (' + str(note['reason']) + ')'}")
+    if main:
+        print(f"[data] prepared store: "
+              f"{'on' if note['active'] else 'off (' + str(note['reason']) + ')'}")
+    # each process's slice of every launch; launch sizes split evenly
+    mesh, host_batch, dp = build_mesh_and_batch(args.batch_size)
     batcher = ShardedBatcher(
-        ds, args.batch_size, shuffle=False, seed=args.seed,
+        ds, host_batch, shuffle=False, seed=args.seed,
+        process_index=process_index(), process_count=process_count(),
+        batch_quantum=math.lcm(dp, process_count()),
         pad_multiple=args.pad_multiple, max_buckets=args.max_buckets,
         num_workers=resolve_num_workers(args.num_workers),
         remnant_sizes=not args.no_remnant_batches,
         launch_cost_px=resolve_launch_cost_px(args.launch_cost_mpx, device,
-                                              announce=True))
-    print_data_line(args.split, batcher)
-    fill = ((1 + batcher.schedule_overhead(0))
-            / (1 + batcher.padding_overhead()) - 1)
-    if fill > 0.5 and args.no_remnant_batches:
-        print(f"[data] hint: fill slots add {fill:.0%} compute — drop "
-              f"--no-remnant-batches or use a smaller --batch-size")
+                                              announce=main))
+    if main:
+        print_data_line(args.split, batcher)
+        fill = ((1 + batcher.schedule_overhead(0))
+                / (1 + batcher.padding_overhead()) - 1)
+        if fill > 0.5 and args.no_remnant_batches:
+            print(f"[data] hint: fill slots add {fill:.0%} compute — drop "
+                  f"--no-remnant-batches or use a smaller --batch-size")
     try:
         put = DevicePut(device)
         t0 = time.perf_counter()
-        metrics = evaluate(make_eval_step(compute_dtype=compute_dtype), model,
-                           batcher.epoch(0), put_fn=put,
+        metrics = evaluate(make_dp_eval_step(mesh, compute_dtype=compute_dtype),
+                           model, batcher.epoch(0), put_fn=put,
                            dataset_size=batcher.dataset_size,
                            prefetch=put.depth if prefetch is None else prefetch)
         eval_s = time.perf_counter() - t0
     finally:
         batcher.close()
-    if item_cache is not None:
+    if item_cache is not None and main:
         print(f"[data] item cache: {item_cache.stats()}")
-    print(f"[result] images={metrics['num_images']} "
-          f"MAE={metrics['mae']:.3f} MSE={metrics['mse']:.3f}", flush=True)
+    if main:
+        print(f"[result] images={metrics['num_images']} "
+              f"MAE={metrics['mae']:.3f} MSE={metrics['mse']:.3f}", flush=True)
     out = dict(metrics, eval_s=eval_s, epoch=epoch, density=None, viz_paths=[])
-    if args.show_index is not None:
+    if args.show_index is not None and main:
         img, gt = ds[args.show_index]
         img = normalize_host(img)  # no-op for the f32 path
         with torch.inference_mode():

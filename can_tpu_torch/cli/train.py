@@ -1,8 +1,10 @@
-"""Training CLI, one process on one GPU (counterpart of
+"""Training CLI, one process per GPU (counterpart of
 ``can_tpu/cli/train.py``)::
 
     python -m can_tpu_torch.cli.train --data_root part_A --syncBN \\
         --bn-impl kernel --batch-size 8 --pad-multiple 64 --epochs 500
+    torchrun --nproc_per_node=8 -m can_tpu_torch.cli.train \\
+        --data_root part_A --syncBN --bn-impl kernel --batch-size 8
 
 Trains CANNet (``--syncBN``: the BatchNorm model, its train-mode moments
 through ``--bn-impl``; ``kernel`` is the CUDA kernel of ``ops/cuda_bn.py``)
@@ -22,8 +24,19 @@ else by the planner's ladder; straggler groups launch at their exact
 size and the train batcher caps each launch at the card's memory
 (``cli/common.py``).  Batches load on ``--num-workers`` threads and are
 put on the card two ahead (``data/prefetch.py``); density maps come from
-a prepared store where one validates (``--prepared-root``).  DDP,
-cross-GPU SyncBN and telemetry come with later slices (ROADMAP Queue 1).
+a prepared store where one validates (``--prepared-root``).
+
+Under a launcher (``torchrun`` / ``torch.distributed.launch --use_env``,
+the JAX package's ``COORDINATOR_ADDRESS`` variables, or SLURM's ``srun``:
+``parallel/runtime.py``) each process trains on its own GPU
+(``cuda:LOCAL_RANK``) over NCCL, or over gloo with ``--platform cpu``:
+DDP averages the gradients, ``--batch-size`` is per process (the global
+batch is ``batch_size * world``), the lr scales with the world, and with
+``--syncBN`` every BN layer takes the global batch's moments (one
+all-reduce of its packed sums).  Rank 0 logs, evaluates into the
+checkpoint directory and writes checkpoints; every rank restores from
+it.  Spatial parallelism, elastic training and telemetry come with later
+slices (ROADMAP Queue 1).
 """
 
 from __future__ import annotations
@@ -31,6 +44,7 @@ from __future__ import annotations
 import argparse
 import datetime
 import itertools
+import math
 import os
 import sys
 
@@ -39,6 +53,8 @@ import torch
 
 from can_tpu_torch.cli.common import (
     DEFAULT_LAUNCH_COST_MPX,
+    agreed_device_memory_bytes,
+    build_mesh_and_batch,
     make_remat_policy,
     max_launch_pixels,
     parse_launch_cost,
@@ -52,22 +68,23 @@ from can_tpu_torch.cli.common import (
 from can_tpu_torch.device import (
     PLATFORMS,
     NoCudaDeviceError,
-    resolve_device,
     use_deterministic,
     use_full_f32,
 )
 
 
 def parse_args(argv=None):
-    p = argparse.ArgumentParser(description="CANNet training (PyTorch/CUDA, one GPU)")
+    p = argparse.ArgumentParser(description="CANNet training (PyTorch/CUDA)")
     p.add_argument("--epochs", type=int, default=500)
-    p.add_argument("--batch-size", type=int, default=1)
+    p.add_argument("--batch-size", type=int, default=1,
+                   help="images per process (per GPU) per step; the global "
+                        "batch is batch-size x processes")
     p.add_argument("--lr", type=float, default=1e-7)
     p.add_argument("--lrf", type=float, default=1.0,
                    help="final lr fraction for a cosine decay (1.0 = constant)")
     p.add_argument("--syncBN", action="store_true",
-                   help="train the BatchNorm variant of CANNet (on one GPU "
-                        "its moments are those of the local batch)")
+                   help="train the BatchNorm variant of CANNet, its moments "
+                        "those of the global batch across processes")
     p.add_argument("--bn-impl", choices=("twopass", "onepass", "kernel"),
                    default="onepass",
                    help="train-mode BN moments (with --syncBN): 'onepass' "
@@ -162,8 +179,9 @@ def parse_args(argv=None):
                    help="truncate epochs (smoke runs); 0 = full epoch")
     p.add_argument("--platform", type=str, default="default",
                    choices=list(PLATFORMS),
-                   help="default/gpu: the CUDA device (exit non-zero without "
-                        "one); cpu: run on the CPU")
+                   help="default/gpu: the CUDA device cuda:LOCAL_RANK, NCCL "
+                        "between processes (exit non-zero without it); cpu: "
+                        "run on the CPU, gloo between processes")
     return p.parse_args(argv)
 
 
@@ -226,36 +244,68 @@ def validate(args):
 def train(args) -> dict:
     """The whole run; returns ``{"steps", "schedule_steps" (the planned
     schedule's steps over the epochs run), "eval_batches", "epochs" (one
-    dict per epoch), "best_mae", "checkpoint_dir"}``.  Raises SystemExit
-    on bad arguments and without the asked-for device."""
+    dict per epoch), "best_mae", "checkpoint_dir", "world_size"}``.
+    Raises SystemExit on bad arguments and without the asked-for device.
+    Joins the process group a launcher describes (``init_runtime``) and
+    leaves it at the end, unless the caller formed it."""
+    from can_tpu_torch.parallel import init_runtime, runtime_active, shutdown_runtime
+
+    roots = validate(args)
+    owned = not runtime_active()
+    try:
+        topo = init_runtime(platform=args.platform)
+    except NoCudaDeviceError as e:
+        raise SystemExit(f"[train] {e}") from None
+    try:
+        return _train(args, roots, topo)
+    finally:
+        if owned:
+            shutdown_runtime()
+
+
+def _train(args, roots, topo) -> dict:
     from can_tpu_torch.data import CrowdDataset, ItemCache, ShardedBatcher, StaleStoreError
     from can_tpu_torch.data.prefetch import DevicePut
     from can_tpu_torch.models import CANNet, load_vgg16_frontend
     from can_tpu_torch.ops.bn_moments import make_bn_ops
+    from can_tpu_torch.parallel import (
+        is_main_process,
+        make_dp_eval_step,
+        make_dp_train_step,
+        process_count,
+        process_index,
+    )
     from can_tpu_torch.train import (
         create_train_state,
         evaluate,
-        make_bucketed_train_step,
-        make_eval_step,
         make_lr_schedule,
         train_one_epoch,
     )
-    from can_tpu_torch.utils.checkpoint import CheckpointManager, save_run_config
+    from can_tpu_torch.utils.checkpoint import (
+        CheckpointManager,
+        ConfigDriftError,
+        check_resume_config,
+        has_checkpoint,
+        load_run_config,
+        save_run_config,
+    )
     from can_tpu_torch.utils.logging import MetricLogger
 
-    train_img, train_gt, test_img, test_gt = validate(args)
-    try:
-        device = resolve_device(args.platform)
-    except NoCudaDeviceError as e:
-        raise SystemExit(f"[train] {e}") from None
+    train_img, train_gt, test_img, test_gt = roots
+    device = torch.device(topo["device"])
+    main = is_main_process()
     if device.type == "cuda":
         use_deterministic()
         if not args.bf16:
             use_full_f32()
     compute_dtype = torch.bfloat16 if args.bf16 else None
-    print(f"[start] {datetime.datetime.now():%Y-%m-%d %H:%M:%S} on {device}"
-          + (f" ({torch.cuda.get_device_name(device)})"
-             if device.type == "cuda" else ""))
+    mesh, host_batch, dp = build_mesh_and_batch(args.batch_size)
+    if main:
+        print(f"[start] {datetime.datetime.now():%Y-%m-%d %H:%M:%S} on {device}"
+              + (f" ({torch.cuda.get_device_name(device)})"
+                 if device.type == "cuda" else ""))
+        if topo["backend"] is not None:
+            print(f"[runtime] {topo}")
 
     item_cache = (ItemCache(int(args.item_cache_mb * 1e6))
                   if args.item_cache_mb > 0 else None)
@@ -268,43 +318,54 @@ def train(args) -> dict:
                                    ("test", test_img, test_gt))]
     except StaleStoreError as e:
         raise SystemExit(f"--prepared-root {args.prepared_root}: {e}") from None
-    print("[data] prepared store: " + " ".join(
-        f"{split}={'on' if d.prepared_note['active'] else 'off (' + str(d.prepared_note['reason']) + ')'}"
-        for split, d in (("train", train_ds), ("test", test_ds))))
+    if main:
+        print("[data] prepared store: " + " ".join(
+            f"{split}={'on' if d.prepared_note['active'] else 'off (' + str(d.prepared_note['reason']) + ')'}"
+            for split, d in (("train", train_ds), ("test", test_ds))))
     num_workers = resolve_num_workers(args.num_workers)
+    # every launch splits evenly across the dp replicas and the processes;
+    # every input of the plan below is agreed across processes
     common = dict(seed=args.seed, pad_multiple=args.pad_multiple,
                   max_buckets=args.max_buckets, num_workers=num_workers,
                   plan_mode=args.plan_mode,
+                  process_index=process_index(), process_count=process_count(),
+                  batch_quantum=math.lcm(dp, process_count()),
                   remnant_sizes=not args.no_remnant_batches,
                   launch_cost_px=resolve_launch_cost_px(args.launch_cost_mpx,
-                                                        device, announce=True))
+                                                        device, announce=main))
     # the memory cap per launch: cells whose full batch would not fit the
     # card run at smaller menu sizes (remnant mode only, as in JAX); it
     # counts on remat, which the policy turns on where it is needed,
-    # unless --remat off
+    # unless --remat off.  A launch is split across the dp cards.
+    hbm = agreed_device_memory_bytes(device)
     cap = (None if args.no_remnant_batches
-           else max_launch_pixels(bf16=args.bf16, device=device,
+           else max_launch_pixels(bf16=args.bf16, hbm_bytes=hbm,
                                   batch_norm=args.syncBN,
-                                  remat=args.remat != "off"))
-    remat_policy = make_remat_policy(args.remat, global_batch=args.batch_size,
-                                     bf16=args.bf16, device=device,
-                                     batch_norm=args.syncBN, announce=True)
-    train_batcher = ShardedBatcher(train_ds, args.batch_size, shuffle=True,
+                                  remat=args.remat != "off", shards=dp))
+    remat_policy = make_remat_policy(args.remat, global_batch=host_batch * dp,
+                                     bf16=args.bf16, hbm_bytes=hbm,
+                                     batch_norm=args.syncBN, announce=main,
+                                     shards=dp)
+    train_batcher = ShardedBatcher(train_ds, host_batch, shuffle=True,
                                    max_launch_px=cap, **common)
-    test_batcher = ShardedBatcher(test_ds, args.batch_size, shuffle=False,
+    test_batcher = ShardedBatcher(test_ds, host_batch, shuffle=False,
                                   **common)
-    print(f"[data] train={len(train_ds)} test={len(test_ds)} "
-          f"batch={args.batch_size} workers={num_workers} launch cap "
-          + (f"{cap / 1e6:.1f} Mpx" if cap is not None else "none"))
-    print_data_line("train", train_batcher, remat_policy)
-    print_data_line("test", test_batcher)
+    if main:
+        print(f"[data] train={len(train_ds)} test={len(test_ds)} "
+              f"batch={host_batch} per process x dp={dp} "
+              f"workers={num_workers} launch cap "
+              + (f"{cap / 1e6:.1f} Mpx" if cap is not None else "none"))
+        print_data_line("train", train_batcher, remat_policy)
+        print_data_line("test", test_batcher)
 
+    # the same seed gives the same weights on every process
     model = CANNet(device=device, seed=args.seed, batch_norm=args.syncBN,
                    s2d_stem=args.s2d_stem)
     if args.vgg16_npz:
         load_vgg16_frontend(model, args.vgg16_npz)
-        print(f"[init] loaded the pretrained VGG-16 frontend from "
-              f"{args.vgg16_npz}")
+        if main:
+            print(f"[init] loaded the pretrained VGG-16 frontend from "
+                  f"{args.vgg16_npz}")
     if args.init_torch_pth:
         from can_tpu_torch.utils.torch_import import (
             is_batch_norm_layout,
@@ -318,40 +379,59 @@ def train(args) -> dict:
                 f"{'BN' if is_batch_norm_layout(sd) else 'plain'} model; "
                 f"{'drop' if args.syncBN else 'add'} --syncBN")
         model.load_state_dict(sd, strict=True)
-        print(f"[init] warm-started parameters from {args.init_torch_pth}")
+        if main:
+            print(f"[init] warm-started parameters from {args.init_torch_pth}")
     model = model.to(memory_format=torch.channels_last)
     bn_ops = make_bn_ops(args.bn_impl) if args.syncBN else None
-    if args.syncBN:
-        print(f"[model] BatchNorm variant, moments: {args.bn_impl}")
+    if args.syncBN and main:
+        print(f"[model] BatchNorm variant, moments: {args.bn_impl}"
+              + (f", synced across {dp} processes" if dp > 1 else ""))
 
     steps_per_epoch = train_batcher.batches_per_epoch(0)
-    schedule = make_lr_schedule(args.lr, world_size=1,
+    # linear lr scaling with the world: DDP averages the gradients
+    schedule = make_lr_schedule(args.lr, world_size=dp,
                                 total_steps=args.epochs * steps_per_epoch,
                                 lrf=args.lrf)
     state = create_train_state(model, schedule)
     ckpt = CheckpointManager(args.checkpoint_dir)
     start_epoch, best = 0, None
     if args.init_checkpoint:
+        # a world size other than the checkpoint's changes the schedule
+        saved = load_run_config(args.init_checkpoint)
+        if (saved is not None and "world_size" in saved
+                and has_checkpoint(args.init_checkpoint)):
+            try:
+                check_resume_config({"world_size": saved["world_size"]},
+                                    {"world_size": dp},
+                                    allow=args.allow_config_change)
+            except ConfigDriftError as e:
+                raise SystemExit(f"{e}: the checkpoint trained at another "
+                                 f"world size (pass --allow-config-change to "
+                                 f"resume on this one)") from None
         probe = CheckpointManager(args.init_checkpoint)
         latest = probe.latest_epoch()
         if latest is None:
-            print(f"[resume] no checkpoint in {args.init_checkpoint}; cold start")
+            if main:
+                print(f"[resume] no checkpoint in {args.init_checkpoint}; "
+                      f"cold start")
         else:
             probe.restore(state, epoch=latest)
             start_epoch, best = latest + 1, probe.best_metric()
-            print(f"[resume] epoch {latest} from {args.init_checkpoint} "
-                  f"(step {state.step}, best MAE {best:.3f})")
-    save_run_config(args.checkpoint_dir, dict(run_config(args), world_size=1))
+            if main:
+                print(f"[resume] epoch {latest} from {args.init_checkpoint} "
+                      f"(step {state.step}, best MAE {best:.3f})")
+    # after the resume check: an in-place resume reads the saved world first
+    save_run_config(args.checkpoint_dir, dict(run_config(args), world_size=dp))
 
-    train_step = make_bucketed_train_step(policy=remat_policy,
-                                          compute_dtype=compute_dtype,
-                                          bn_ops=bn_ops)
-    eval_step = make_eval_step(compute_dtype=compute_dtype)
+    train_step = make_dp_train_step(model, mesh, policy=remat_policy,
+                                    compute_dtype=compute_dtype, bn_ops=bn_ops)
+    eval_step = make_dp_eval_step(mesh, compute_dtype=compute_dtype)
     put = DevicePut(device)
-    logger = MetricLogger(use_wandb=args.wandb, run_id_file=os.path.join(
-        args.checkpoint_dir, "wandb_run_id.txt"))
+    logger = (MetricLogger(use_wandb=args.wandb, run_id_file=os.path.join(
+        args.checkpoint_dir, "wandb_run_id.txt")) if main else None)
     summary = {"steps": 0, "schedule_steps": 0, "eval_batches": 0,
-               "epochs": [], "checkpoint_dir": ckpt.directory}
+               "epochs": [], "checkpoint_dir": ckpt.directory,
+               "world_size": dp}
     try:
         for epoch in range(start_epoch, args.epochs):
             batches = train_batcher.epoch(epoch)
@@ -377,20 +457,24 @@ def train(args) -> dict:
                           extra={"mse": metrics["mse"]})
                 if best is None or metrics["mae"] < best:
                     best = metrics["mae"]
-                    print(f"[best] epoch {epoch}: MAE {best:.3f}")
-                if args.show:
+                    if main:
+                        print(f"[best] epoch {epoch}: MAE {best:.3f}")
+                if args.show and main:
                     _save_sample_viz(args, state.model, test_ds, epoch, logger,
                                      compute_dtype)
-            logger.log(row, step=epoch)
+            if main:
+                logger.log(row, step=epoch)
             summary["epochs"].append(row)
     finally:
         train_batcher.close()
         test_batcher.close()
-        logger.finish()
-    if item_cache is not None:
+        if logger is not None:
+            logger.finish()
+    if item_cache is not None and main:
         print(f"[data] item cache: {item_cache.stats()}")
     summary["best_mae"] = best
-    print(f"[done] best MAE {best:.3f}" if best is not None else "[done]")
+    if main:
+        print(f"[done] best MAE {best:.3f}" if best is not None else "[done]")
     return summary
 
 

@@ -1,5 +1,5 @@
 """Shape buckets, padded batch assembly and the training batcher
-(counterpart of ``can_tpu/data/batching.py:52-911``, one process).
+(counterpart of ``can_tpu/data/batching.py:52-911``).
 
 Serving and training group items by bucket shape and pad each group into
 one static-shape batch: a per-image ``sample_mask`` and a per-cell
@@ -8,7 +8,13 @@ slots contribute exactly zero to losses and counts.  ``ShardedBatcher``
 is the one-process training schedule: a seeded shuffle per (seed, epoch)
 and buckets that are exact shapes, integer multiples or, with
 ``pad_multiple="auto"``, a per-axis ladder chosen from the dataset's
-shape histogram.  With ``remnant_sizes`` the launch plan (per-cell batch
+shape histogram.  Under several processes every process computes the
+same global schedule from the same seed and loads only its own slice of
+each global launch (the lockstep sharding ``DistributedSampler`` gives
+the reference, train.py:79-88): every process steps through the same
+launch count and shapes, which DDP's collectives need.  Short launches
+get ``sample_mask = 0`` fill slots, not the reference's wrap-around
+duplicates.  With ``remnant_sizes`` the launch plan (per-cell batch
 sizes under the memory cap, straggler covers at exact sizes, group
 merges) comes from the cost model of ``data/planner.py``, or with
 ``plan_mode="legacy"`` from its pre-cost-model heuristics.  The schedule
@@ -110,11 +116,14 @@ def pad_batch(items, bucket_hw: Tuple[int, int], batch_size: int,
 
 
 class ShardedBatcher:
-    """Shuffled, shape-bucketed batch iterator for one process.
+    """Shuffled, shape-bucketed, lockstep-sharded batch iterator.
 
     dataset: needs ``__len__``, ``snapped_shape(i) -> (H, W)`` and
       ``__getitem__(i, rng) -> (img HWC, dmap hw1)``.
-    batch_size: items per emitted batch (remnant launches may be smaller).
+    batch_size: items per process per emitted batch (remnant launches may
+      be smaller); the global batch is ``batch_size * process_count``.
+    process_index, process_count: this process and the world; each
+      process loads slice ``process_index`` of every global launch.
     pad_multiple: None -> bucket by exact snapped shape (zero padding);
       int or (mh, mw), multiples of ``ds`` -> round H, W up to them;
       ``"auto"`` -> exact shapes when at most ``max_buckets`` distinct
@@ -124,9 +133,12 @@ class ShardedBatcher:
     num_workers: loader threads (0 = load in the caller's thread); the
       batches come out in schedule order either way.
     remnant_sizes: straggler groups launch at the sizes of a menu (every
-      multiple of ``batch_quantum`` up to the batch) instead of padding
-      to the full batch; with a ladder the whole launch plan comes from
-      ``data/planner.py``.
+      multiple of ``batch_quantum`` up to the global batch) instead of
+      padding to the full batch; with a ladder the whole launch plan
+      comes from ``data/planner.py``.
+    batch_quantum: global launch sizes are multiples of it, so every
+      launch splits evenly across processes (callers pass lcm(dp,
+      process_count)); default ``process_count``.
     launch_cost_px: fixed cost of one launch in pixel equivalents, for the
       planner's pixels-against-launches trade (``cli/common.py`` derives
       it from the card's measurement).
@@ -138,7 +150,8 @@ class ShardedBatcher:
     """
 
     def __init__(self, dataset, batch_size: int, *, shuffle: bool = True,
-                 seed: int = 0, pad_multiple=None, ds: int = 8,
+                 seed: int = 0, process_index: int = 0, process_count: int = 1,
+                 pad_multiple=None, ds: int = 8,
                  max_buckets: int = 8, num_workers: int = 0,
                  remnant_sizes: bool = False,
                  batch_quantum: Optional[int] = None,
@@ -157,7 +170,12 @@ class ShardedBatcher:
         self.ds = int(ds)
         self.max_buckets = int(max_buckets)
         self.remnant_sizes = bool(remnant_sizes)
-        self.batch_quantum = int(batch_quantum or 1)
+        self.process_index = int(process_index)
+        self.process_count = int(process_count)
+        if not 0 <= self.process_index < self.process_count:
+            raise ValueError(f"process_index {process_index} outside "
+                             f"process_count {process_count}")
+        self.batch_quantum = int(batch_quantum or self.process_count)
         self.launch_cost_px = float(launch_cost_px)
         self.max_launch_px = (None if max_launch_px is None
                               else float(max_launch_px))
@@ -172,9 +190,16 @@ class ShardedBatcher:
         self._epoch_cache: Optional[Tuple[int, list]] = None
         self._shape_cache: Dict[int, Tuple[int, int]] = {}
         self.bucket_ladder: Optional[Tuple[Tuple[int, ...], Tuple[int, ...]]] = None
-        if self.remnant_sizes and self.batch_size % self.batch_quantum:
-            raise ValueError(f"batch ({self.batch_size}) must be a multiple "
-                             f"of batch_quantum ({self.batch_quantum})")
+        if self.remnant_sizes:
+            gbs = self.batch_size * self.process_count
+            if self.batch_quantum % self.process_count:
+                raise ValueError(
+                    f"batch_quantum ({self.batch_quantum}) must be a multiple "
+                    f"of process_count ({self.process_count}) so every "
+                    f"process slices an equal share of each sub-batch")
+            if gbs % self.batch_quantum:
+                raise ValueError(f"global batch ({gbs}) must be a multiple "
+                                 f"of batch_quantum ({self.batch_quantum})")
         if pad_multiple == "auto":
             pad_multiple = self._resolve_auto_buckets()
         if isinstance(pad_multiple, int):
@@ -361,7 +386,8 @@ class ShardedBatcher:
 
     # -- the plan ------------------------------------------------------------
     def _remnant_menu(self) -> Tuple[int, ...]:
-        return remnant_menu(self.batch_size, self.batch_quantum,
+        return remnant_menu(self.batch_size * self.process_count,
+                            self.batch_quantum,
                             mode=self.plan_mode)
 
     def _cost_model(self, menu: Optional[Tuple[int, ...]] = None):
@@ -456,7 +482,7 @@ class ShardedBatcher:
             order = np.random.default_rng((self.seed, epoch)).permutation(n)
         else:
             order = np.arange(n)
-        gbs = self.batch_size
+        gbs = self.batch_size * self.process_count
         menu = self._remnant_menu() if self.remnant_sizes else None
         plan = None
         if self.bucket_ladder is not None and self.remnant_sizes:
@@ -542,13 +568,23 @@ class ShardedBatcher:
         return len(self.global_schedule(epoch))
 
     # -- loading ----------------------------------------------------------------
+    def host_slice(self, group):
+        """This process's share of one global launch: the
+        ``process_index``-th of ``process_count`` equal parts (every
+        launch size is a multiple of ``process_count``: the quantum
+        contract)."""
+        sub = len(group) // self.process_count
+        lo = self.process_index * sub
+        return group[lo:lo + sub]
+
     def epoch(self, epoch: int) -> Iterator[Batch]:
-        """Yield each batch of the epoch's schedule, in order.  Each item's
-        RNG (the flip) is keyed on (seed, epoch, index), so the output is
-        the same with or without loader threads.  With ``num_workers > 0``
-        the items of a sliding window of upcoming batches load on the
-        thread pool."""
-        schedule = self.global_schedule(epoch)
+        """Yield this process's slice of each batch of the epoch's
+        schedule, in order.  Each item's RNG (the flip) is keyed on (seed,
+        epoch, index), so the output is the same with or without loader
+        threads.  With ``num_workers > 0`` the items of a sliding window
+        of upcoming batches load on the thread pool."""
+        schedule = [(key, self.host_slice(group))
+                    for key, group in self.global_schedule(epoch)]
         pool = self._ensure_pool()
         if pool is None:
             for key, group in schedule:

@@ -2,12 +2,14 @@
 
 Counterpart of the JAX CLIs' ``apply_platform`` (can_tpu/cli/train.py).
 There is no silent fallback: a caller that wants the card and finds none
-gets an error naming the missing card, never a run on the CPU.
+(or whose ``LOCAL_RANK`` names a card that is not there) gets an error
+naming the missing card, never a run on the CPU.
 """
 
 from __future__ import annotations
 
 import os
+from typing import Optional
 
 import torch
 
@@ -20,9 +22,14 @@ class NoCudaDeviceError(RuntimeError):
     """The card was asked for (``default`` or ``gpu``) and none is visible."""
 
 
-def resolve_device(platform: str = "default") -> torch.device:
-    """``"default"``/``"gpu"`` -> ``cuda:0`` (raises ``NoCudaDeviceError``
-    without a CUDA device); ``"cpu"`` -> the CPU."""
+def resolve_device(platform: str = "default",
+                   local_rank: Optional[int] = None) -> torch.device:
+    """``"default"``/``"gpu"`` -> ``cuda:LOCAL_RANK``, the process's own
+    card (raises ``NoCudaDeviceError`` without a CUDA device, or when
+    ``local_rank`` names one past ``torch.cuda.device_count()``);
+    ``"cpu"`` -> the CPU.  ``local_rank`` None reads the launcher's
+    ``LOCAL_RANK`` (0 when unset): one process per GPU, as under
+    ``torchrun``."""
     if platform not in PLATFORMS:
         raise ValueError(f"platform must be one of {PLATFORMS}, got "
                          f"{platform!r}")
@@ -33,7 +40,16 @@ def resolve_device(platform: str = "default") -> torch.device:
             "no CUDA device is visible (torch.cuda.is_available() is False); "
             "this program runs on an NVIDIA GPU — pass --platform cpu to run "
             "on the CPU instead")
-    return torch.device("cuda", 0)
+    if local_rank is None:
+        local_rank = int(os.environ.get("LOCAL_RANK", "0"))
+    count = torch.cuda.device_count()
+    if not 0 <= local_rank < count:
+        raise NoCudaDeviceError(
+            f"LOCAL_RANK {local_rank} names CUDA device {local_rank}, but "
+            f"{count} CUDA device(s) are visible: start at most one process "
+            f"per GPU (torchrun --nproc_per_node <= {count}) — pass "
+            f"--platform cpu to run on the CPU instead")
+    return torch.device("cuda", local_rank)
 
 
 def use_full_f32() -> None:

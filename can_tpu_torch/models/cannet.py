@@ -136,7 +136,8 @@ class CANNet(nn.Module):
                 pixel_mask: Optional[torch.Tensor] = None,
                 sample_mask: Optional[torch.Tensor] = None,
                 bn_ops: Optional[BNOps] = None,
-                compute_dtype=None, remat: bool = False) -> torch.Tensor:
+                compute_dtype=None, remat: bool = False,
+                bn_axes=None, bn_shards: int = 1) -> torch.Tensor:
         """(N, H, W, 3) NHWC image batch -> (N, H/8, W/8, 1) density map,
         computed in ``compute_dtype`` (default: x's dtype).
 
@@ -147,14 +148,20 @@ class CANNet(nn.Module):
         ((N,)) restrict the train-mode moments to real pixels of real
         images: the /8 mask is upsampled by 8 and subsampled by each
         max-pool (valid regions are /8-snapped, so this is exact).
+        ``bn_axes`` (SyncBN): the process group the train-mode moments are
+        summed over (``parallel.runtime.process_group()``), None for the
+        local batch; ``bn_shards`` is its size, for the unmasked
+        moments' unbiased correction (the masked path counts the global
+        valid pixels itself).
 
         ``remat`` (with gradients enabled): each segment — the frontend's
         four stages, each ending at its max-pool, the context block and
         the backend — runs under ``torch.utils.checkpoint``, so the
         backward keeps only the segments' inputs and recomputes the rest
         one segment at a time.  The recompute takes the same batch moments
-        and leaves the running statistics alone: the updates a segment
-        returns are applied after the forward, from its first run only.
+        (under SyncBN it all-reduces them again, inside the backward) and
+        leaves the running statistics alone: the updates a segment returns
+        are applied after the forward, from its first run only.
         """
         if compute_dtype is not None:
             x = x.to(compute_dtype)
@@ -177,7 +184,8 @@ class CANNet(nn.Module):
                                   preserve_rng_state=False)
             return fn(*args)
 
-        stack = functools.partial(self._stack, dt=dt, train=train, bn_ops=bn_ops)
+        stack = functools.partial(self._stack, dt=dt, train=train, bn_ops=bn_ops,
+                                  bn_axes=bn_axes, bn_shards=bn_shards)
         updates = []
         for stage, mask in zip(self._stages, masks):
             x, ups = run(stack, stage, x, mask)
@@ -200,7 +208,8 @@ class CANNet(nn.Module):
                            context_fused=self.context_fused)
         return torch.cat([fv, fi], dim=-1)
 
-    def _stack(self, layers, x, bn_mask, *, dt, train, bn_ops):
+    def _stack(self, layers, x, bn_mask, *, dt, train, bn_ops, bn_axes,
+               bn_shards):
         """A frontend stage or the backend (with the output conv), one
         remat segment: returns ``(x, [(BatchNorm2d, new stats), ...])``."""
         dilation = 2 if layers is self.backend else 1
@@ -219,7 +228,8 @@ class CANNet(nn.Module):
                 x, new = _batch_norm(x, {"scale": layer.weight,
                                          "bias": layer.bias},
                                      stats, train, BN_MOMENTUM, mask=bn_mask,
-                                     bn_ops=bn_ops)
+                                     bn_ops=bn_ops, axes=bn_axes,
+                                     n_shards=bn_shards)
                 if new is not None:
                     updates.append((layer, new))
             elif isinstance(layer, nn.ReLU):
@@ -234,7 +244,7 @@ class CANNet(nn.Module):
 
 def _batch_norm(y, bn_params: Mapping, stats: Optional[Mapping], train: bool,
                 momentum: float, eps: float = BN_EPS, *, axes=None,
-                mask=None, bn_ops: Optional[BNOps] = None):
+                n_shards: int = 1, mask=None, bn_ops: Optional[BNOps] = None):
     """torch-semantics BatchNorm2d over NHWC (``_batch_norm`` of
     can_tpu/models/cannet.py:312): train mode normalises with the biased
     batch variance and returns running stats updated with the unbiased
@@ -248,7 +258,10 @@ def _batch_norm(y, bn_params: Mapping, stats: Optional[Mapping], train: bool,
       mean = var = 0, not NaN), unbiased by ``s0 / (s0 - 1)``, and an
       all-fill batch (s0 = 0) leaves the running stats unchanged;
     * ``bn_ops`` picks how the masked moments are reduced (two-pass when
-      None); ``axes`` must be empty on one GPU (see ops/bn_moments.py).
+      None); ``axes`` is the process group the moments are summed over
+      (SyncBN, ``ops/bn_moments.py``) or None, and ``n_shards`` its size:
+      the unmasked moments' unbiased correction counts the global pixels
+      (the masked path's s0 is already global).
     """
     acc = torch.float64 if y.dtype == torch.float64 else torch.float32
     yf = y.to(acc)
@@ -268,7 +281,7 @@ def _batch_norm(y, bn_params: Mapping, stats: Optional[Mapping], train: bool,
             mean = torch.mean(yf, dim=(0, 1, 2))
             var = torch.var(yf, dim=(0, 1, 2), unbiased=False)
         if mask is None:
-            n = y.shape[0] * y.shape[1] * y.shape[2]
+            n = y.shape[0] * y.shape[1] * y.shape[2] * n_shards
             unbiased = var * (n / max(n - 1, 1))
         with torch.no_grad():
             if stats is not None:

@@ -6,9 +6,15 @@ the telemetry, health and elastic hooks come with later slices).
 
 * Metrics stay on the device and are fetched once per window of
   ``check_every`` steps — one host sync per window, never one per step.
-* The non-finite check runs at that flush and raises
-  ``NonFiniteLossError`` (the divergence happened within the window).
-* Eval MAE/MSE divide by the true dataset size, not the padded schedule.
+* Under several processes each window's per-step (loss, images) rows are
+  summed across processes (one host all-reduce per window) before
+  anything reads them: every rank sees the global values.
+* The non-finite check runs at that flush, on the global values, and
+  raises ``NonFiniteLossError`` on every rank together (one rank raising
+  alone would leave the others waiting in their next collective).
+* Eval MAE/MSE divide by the true dataset size, not the padded schedule;
+  the eval step's sums are global already
+  (``parallel.data_parallel.make_dp_eval_step``).
 * Each epoch's wall time and images/s are returned in ``EpochStats``.
 """
 
@@ -18,9 +24,11 @@ import math
 import time
 from typing import Callable, Iterable, List, NamedTuple
 
+import numpy as np
 import torch
 
 from can_tpu_torch.data.prefetch import prefetch_to_device
+from can_tpu_torch.parallel.runtime import process_count, reduce_value
 from can_tpu_torch.train.steps import NonFiniteLossError
 
 
@@ -52,7 +60,11 @@ def _fetch(pending: List[dict], keys) -> List[List[float]]:
 
 def _flush(pending, loss_sum, img_sum, check_finite, epoch, step_count):
     window = len(pending)
-    for i, (loss, n) in enumerate(_fetch(pending, ("loss", "num_valid"))):
+    rows = _fetch(pending, ("loss", "num_valid"))
+    if rows and process_count() > 1:
+        # one reduce per window, before the check: every rank raises together
+        rows = reduce_value(np.asarray(rows, np.float64), average=False).tolist()
+    for i, (loss, n) in enumerate(rows):
         if check_finite and not math.isfinite(loss):
             raise NonFiniteLossError(
                 f"non-finite loss {loss} in epoch {epoch}, step "

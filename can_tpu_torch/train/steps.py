@@ -4,7 +4,8 @@ The reference's hot loop (utils/train_eval_utils.py:28-52): forward,
 masked MSE-sum, backward, SGD step.  DDP averages per-rank gradients of
 per-rank MSE-sums while the lr scales with the world, so the global
 equivalent is ``loss = sse / grad_divisor`` with ``grad_divisor`` the
-data-parallel world size (1 on one GPU).
+data-parallel world size.  Under DDP (``parallel/data_parallel.py``)
+that average is DDP's own, and the step's divisor stays 1.
 
 A step runs eagerly and leaves its metrics on the device: the loop
 fetches them once per window (``train/loop.py``), never once per step.
@@ -61,15 +62,21 @@ def global_norm(tensors) -> torch.Tensor:
 
 
 def forward_loss(state, batch: Dict[str, torch.Tensor], *, grad_divisor: int = 1,
-                 compute_dtype=None, bn_ops=None, remat: bool = False):
+                 compute_dtype=None, bn_ops=None, remat: bool = False,
+                 module=None, bn_axes=None, bn_shards: int = 1):
     """Forward and masked MSE-sum on a device batch: returns
     ``(sse / grad_divisor, sse)``.  A BN model trains (batch moments
-    through ``bn_ops`` with the masks, running statistics updated);
-    ``remat`` recomputes the forward's segments in the backward."""
+    through ``bn_ops`` with the masks, over the process group ``bn_axes``
+    of ``bn_shards`` ranks under SyncBN, running statistics updated);
+    ``remat`` recomputes the forward's segments in the backward.
+    ``module``: what runs the forward (a ``DistributedDataParallel``
+    wrapping ``state.model``; default the model itself)."""
     image = normalize_on_device(batch["image"], batch["pixel_mask"])
-    pred = state.model(image, train=True, pixel_mask=batch["pixel_mask"],
-                       sample_mask=batch["sample_mask"], bn_ops=bn_ops,
-                       compute_dtype=compute_dtype, remat=remat)
+    pred = (module or state.model)(
+        image, train=True, pixel_mask=batch["pixel_mask"],
+        sample_mask=batch["sample_mask"], bn_ops=bn_ops,
+        compute_dtype=compute_dtype, remat=remat, bn_axes=bn_axes,
+        bn_shards=bn_shards)
     sse = masked_mse_sum(pred, batch)
     return sse / grad_divisor, sse
 
@@ -81,22 +88,26 @@ def backward(state, loss: torch.Tensor) -> None:
 
 def make_train_step(*, grad_divisor: int = 1, compute_dtype=None,
                     bn_ops=None, health_metrics: bool = False,
-                    remat: bool = False) -> Callable:
+                    remat: bool = False, module=None, bn_axes=None,
+                    bn_shards: int = 1) -> Callable:
     """Returns ``train_step(state, batch) -> (state, metrics)``; the state
     (a ``train.state.TrainState``) is updated in place.  ``remat``: the
     backward recomputes the forward segment by segment (``CANNet.forward``)
     — the same loss, gradients and running statistics, less memory.
+    ``module``, ``bn_axes``, ``bn_shards``: ``forward_loss``'s (the DDP
+    step of ``parallel.data_parallel.make_dp_train_step``).
 
     batch: dict of device tensors image/dmap/pixel_mask/sample_mask
     (``data.batching.Batch`` fields).  metrics: device scalars — ``loss``
-    (the global SSE, before the divisor) and ``num_valid``; with
+    (this process's SSE, before the divisor) and ``num_valid``; with
     ``health_metrics`` also ``grad_norm`` and ``update_norm`` (global L2 of
     the gradients and of the update ``-lr * momentum buffer``)."""
 
     def train_step(state, batch):
         loss, sse = forward_loss(state, batch, grad_divisor=grad_divisor,
                                  compute_dtype=compute_dtype, bn_ops=bn_ops,
-                                 remat=remat)
+                                 remat=remat, module=module, bn_axes=bn_axes,
+                                 bn_shards=bn_shards)
         backward(state, loss)
         params = [p for p in state.model.parameters() if p.grad is not None]
         grad_norm = global_norm([p.grad for p in params]) if health_metrics else None
@@ -111,17 +122,21 @@ def make_train_step(*, grad_divisor: int = 1, compute_dtype=None,
     return train_step
 
 
-def make_bucketed_train_step(*, policy: Callable, **step_kw) -> Callable:
+def make_bucketed_train_step(*, policy: Callable, dp: int = 1,
+                             **step_kw) -> Callable:
     """A train step that asks ``policy(hw, batch) -> bool`` per launch
     whether to rematerialise (``cli.common.make_remat_policy``; the
     counterpart of can_tpu/cli/common.py:567's per-bucket remat
-    dispatch).  ``step_kw``: ``make_train_step``'s other arguments."""
+    dispatch).  ``batch`` is the global launch, this process's slice
+    times ``dp``, as the JAX package's global batch.  ``step_kw``:
+    ``make_train_step``'s other arguments."""
     steps = {flag: make_train_step(remat=flag, **step_kw)
              for flag in (False, True)}
 
     def train_step(state, batch):
         shape = batch["image"].shape
-        return steps[bool(policy(tuple(shape[1:3]), batch=shape[0]))](state, batch)
+        on = bool(policy(tuple(shape[1:3]), batch=shape[0] * dp))
+        return steps[on](state, batch)
 
     return train_step
 

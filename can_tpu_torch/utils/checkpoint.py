@@ -14,6 +14,13 @@ behind the latest save and the best model is never lost.
 
 I/O retries transient filesystem errors with exponential backoff and
 jitter; past the retry budget it raises the typed ``CheckpointIOError``.
+
+Under several processes (DDP) rank 0 writes and every rank then waits at
+a bounded barrier (``parallel.runtime.barrier``), so no rank reads a
+checkpoint before it exists; every rank restores from the same
+directory.  The state dict is the bare model's (``state.model``, never
+the DDP wrapper): no ``module.`` prefix, so a DDP checkpoint, a
+one-process checkpoint and the reference ``.pth`` export interchange.
 """
 
 from __future__ import annotations
@@ -26,6 +33,8 @@ import time
 from typing import List, Optional
 
 import torch
+
+from can_tpu_torch.parallel.runtime import barrier, is_main_process
 
 RUN_CONFIG_NAME = "run_config.json"
 STATE_NAME = "state.pt"
@@ -50,11 +59,14 @@ class CheckpointIOError(OSError):
 
 def save_run_config(directory: str, config: dict) -> str:
     """Persist the schedule-bearing run config (lr, lrf, epochs, batch,
-    seed, syncBN, bf16) beside the checkpoints, atomically: a resume with
-    a silently changed ``--epochs`` would reshape the cosine schedule the
-    restored optimizer state was built for."""
-    os.makedirs(directory, exist_ok=True)
+    seed, syncBN, bf16, world_size) beside the checkpoints, atomically: a
+    resume with a silently changed ``--epochs`` would reshape the cosine
+    schedule the restored optimizer state was built for.  Rank 0 writes;
+    the path is returned on every rank."""
     path = os.path.join(directory, RUN_CONFIG_NAME)
+    if not is_main_process():
+        return path
+    os.makedirs(directory, exist_ok=True)
     tmp = path + ".tmp"
     with open(tmp, "w") as f:
         json.dump(config, f, indent=1, sort_keys=True)
@@ -145,7 +157,8 @@ class CheckpointManager:
     def save(self, epoch: int, state, *, mae: float,
              extra: Optional[dict] = None) -> bool:
         """Save the state as checkpoint ``epoch`` with its eval metrics,
-        then apply the retention policy.  Returns True."""
+        then apply the retention policy (rank 0), and wait at a bounded
+        barrier until it is on disk (every rank).  Returns True."""
         metrics = {"mae": float(mae)}
         metrics.update({k: float(v) for k, v in (extra or {}).items()})
         payload = {"model": state.model.state_dict(),
@@ -163,8 +176,10 @@ class CheckpointManager:
             shutil.rmtree(final, ignore_errors=True)
             os.replace(tmp, final)
 
-        self._with_retries("save", write)
-        self._prune()
+        if is_main_process():
+            self._with_retries("save", write)
+            self._prune()
+        barrier(f"checkpoint-save-{epoch}")
         return True
 
     def _prune(self) -> None:

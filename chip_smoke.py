@@ -127,9 +127,29 @@ slice 6, in this order after phase 3 (phases 4-8 run after it):
    golden   — tests/test_golden.py's recipe (10 epochs, batch 8, the
               plain model) against its JAX goldens: f32 within 1%, bf16
               reported against 5%;
+slice 7, last:
+   ddp      — data parallelism on the one card.  World 1 over NCCL: the
+              train CLI under ``torchrun --standalone --nproc_per_node=1``
+              (3 steps of the smoke's training schedule at batch 8,
+              eval, checkpoint), its checkpoint and eval metrics bitwise
+              equal to the same run with no process group, then DDP's step
+              overhead at world 1 (DDP against the plain step, in turns).
+              World 2 over gloo, both ranks on cuda:0 (NCCL refuses two
+              ranks on one GPU; ``--ddp-worker`` starts a rank): 4 images
+              per rank, one step per case (f32, f32 with remat, bf16)
+              against world 1 at 8 images (the loss and the update of all
+              weights, gated), both ranks and a second world-2 run bitwise
+              equal, remat bitwise equal to the plain step, launches per
+              rank exact; the first world-2 run builds the kernels from
+              nothing in both ranks at once (the build time per rank); the
+              eval CLI at world 2 against world 1 (MAE and MSE within
+              1e-6).  gloo's times measure correctness, not NCCL's speed;
 9. report   — the card's name and power limit (nvidia-smi's own line), a
               ``kernels`` JSON line,
               and last the result line ``{"ok": true, "device": {...}}``.
+
+``python3 chip_smoke.py --ddp-worker SPEC`` is one rank of the ddp phase
+(the phase starts it; SPEC is the JSON the phase writes).
 
 ``python3 chip_smoke.py --measure-only`` runs the build and the timings of
 phases 2 and 4 that reach the kernels only through interfaces older
@@ -2290,12 +2310,430 @@ def phase_golden(work: Path) -> dict:
     return {"bn": 0, "bn_backward": 0, "context": launches}
 
 
+# [ddp]: data parallelism on the one card.  World 1 over NCCL through
+# torchrun (the CLI's own rendezvous), bitwise against the same run with
+# no process group; world 2 over gloo with both ranks on cuda:0 (NCCL
+# refuses two ranks on one GPU), each rank stepping on half the fixed
+# batch, against world 1 on the whole batch.  gloo's times on the card
+# measure correctness, not NCCL's speed.
+DDP_RANK_BATCH = TRAIN_BATCH // 2
+# world 2 against world 1 after one step: the loss (a sum of the two
+# ranks' SSEs against one SSE: f32 summation order) and the update of all
+# weights and statistics together, in relative L2 norm.  Only summation
+# order differs (8.6e-6 f32, 3.9e-4 bf16 on the card); an all-reduce that
+# drops the cross-rank gradient term moves a parameter's update by O(1)
+# (up to 1.31 in tests/test_torch_ddp.py's float64 SyncBN case, run on a
+# mutated copy)
+DDP_LOSS_RTOL = {"f32": 1e-5, "bf16": 2e-2}
+DDP_UPDATE_RTOL = {"f32": 1e-3, "bf16": 1e-2}
+DDP_CASES = (("f32", False), ("f32 remat", True), ("bf16", False))
+DDP_TIMEOUT_S = 420
+DDP_STEP_REPS = 5
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_ranks(cmds, work: Path, tag: str) -> list:
+    """Start every (argv, env) at once, each in a session of its own, wait
+    up to DDP_TIMEOUT_S, and kill whatever is left; logs go to
+    ``work/ddp_{tag}_{i}.log``.  Fails unless every process exits 0."""
+    import signal
+
+    procs, logs = [], []
+    for i, (argv, env) in enumerate(cmds):
+        path = work / f"ddp_{tag}_{i}.log"
+        logs.append(path)
+        with open(path, "w") as f:
+            procs.append(subprocess.Popen(argv, env=env, cwd=ROOT, stdout=f,
+                                          stderr=subprocess.STDOUT,
+                                          start_new_session=True))
+    deadline = time.perf_counter() + DDP_TIMEOUT_S
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.perf_counter()))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                os.killpg(p.pid, signal.SIGKILL)
+                p.wait()
+    rcs = [p.returncode for p in procs]
+    if any(rcs):
+        for path, rc in zip(logs, rcs):
+            log(f"[ddp] {path.name} (exit {rc}):\n" + path.read_text()[-4000:])
+        fail(f"[ddp] {tag}: exit codes {rcs}")
+    return logs
+
+
+def ddp_step_state(batch, tag: str, remat: bool, world: int, mesh=None):
+    """One BN train step from the seed (lr scaled by ``world``) on
+    ``batch``: under a live process group through ``make_dp_train_step``,
+    else the plain step.  Returns (this step's global loss, the model's
+    state dict, launches)."""
+    import torch
+
+    from can_tpu_torch.models import CANNet
+    from can_tpu_torch.ops import bn_moments as bm
+    from can_tpu_torch.ops import cuda_bn as cb
+    from can_tpu_torch.ops import cuda_context as cc
+    from can_tpu_torch.parallel import make_dp_train_step, make_mesh, reduce_value
+    from can_tpu_torch.train import create_train_state, make_lr_schedule
+
+    model = CANNet(device="cuda", seed=SEED, batch_norm=True)
+    model = model.to(memory_format=torch.channels_last)
+    state = create_train_state(model, make_lr_schedule(1e-6, world_size=world))
+    step = make_dp_train_step(model, mesh or make_mesh(),
+                              compute_dtype=torch.bfloat16 if tag == "bf16" else None,
+                              bn_ops=bm.make_bn_ops("kernel"), remat=remat)
+    cb.reset_launches()
+    cc.reset_launches()  # the main path starts here
+    _, m = step(state, batch)
+    torch.cuda.synchronize()
+    launches = {"bn": cb.LAUNCHES, "bn_backward": cb.BACKWARD_LAUNCHES,
+                "context": cc.LAUNCHES}  # ... and ends here
+    loss = float(reduce_value(np.float64(float(m["loss"])), average=False))
+    sd = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+    return loss, sd, launches
+
+
+def ddp_worker(spec_path: Path) -> int:
+    """One rank of a [ddp] run (``chip_smoke.py --ddp-worker SPEC``):
+    world 1 under torchrun, or one of the two gloo ranks on cuda:0."""
+    import torch
+
+    from can_tpu_torch.cli import test as eval_cli
+    from can_tpu_torch.cli import train as train_cli
+    from can_tpu_torch.device import use_deterministic, use_full_f32
+    from can_tpu_torch.ops import cuda_bn as cb
+    from can_tpu_torch.ops import cuda_context as cc
+    from can_tpu_torch.parallel import (
+        barrier,
+        generation,
+        init_runtime,
+        process_index,
+        shutdown_runtime,
+    )
+
+    spec = json.loads(spec_path.read_text())
+    out = {}
+    if spec["mode"] == "world1":
+        # the train CLI under torchrun: its own rendezvous, NCCL world 1
+        cb.reset_launches()
+        cc.reset_launches()  # the main path starts here
+        summary = train_cli.train(train_cli.parse_args(spec["train_argv"]))
+        out["launches"] = {"bn": cb.LAUNCHES, "bn_backward": cb.BACKWARD_LAUNCHES,
+                           "context": cc.LAUNCHES}  # ... and ends here
+        out["summary"] = {k: summary[k] for k in ("steps", "eval_batches",
+                                                  "world_size", "best_mae")}
+        # a second generation for the step timing: DDP against no DDP
+        topo = init_runtime()
+        out["topology"] = topo
+        batch = ddp_batch(Path(spec["root"]), 0, 1)
+        from can_tpu_torch.models import CANNet
+        from can_tpu_torch.ops import bn_moments as bm
+        from can_tpu_torch.parallel import make_dp_train_step, make_mesh
+        from can_tpu_torch.train import create_train_state, make_lr_schedule, make_train_step
+
+        steps = {}
+        for kind in ("plain", "ddp"):
+            model = CANNet(device="cuda", seed=SEED, batch_norm=True)
+            model = model.to(memory_format=torch.channels_last)
+            state = create_train_state(model, make_lr_schedule(1e-6))
+            fn = (make_train_step(bn_ops=bm.make_bn_ops("kernel")) if kind == "plain"
+                  else make_dp_train_step(model, make_mesh(),
+                                          bn_ops=bm.make_bn_ops("kernel")))
+            steps[kind] = (fn, state)
+        times = {"plain": [], "ddp": []}
+        for kind in ("plain", "ddp", "ddp", "plain"):
+            fn, state = steps[kind]
+            times[kind].append(time_ms(lambda: fn(state, batch), reps=DDP_STEP_REPS))
+        out["step_ms"] = times
+        out["generation"] = generation()
+        shutdown_runtime()
+    else:
+        # two ranks on one card: gloo, both on cuda:0
+        use_deterministic()
+        use_full_f32()
+        topo = init_runtime(device=torch.device("cuda", 0), backend="gloo")
+        out["topology"] = topo
+        rank = process_index()
+        if spec.get("build_root"):
+            # every rank builds the kernels at once, into a fresh root
+            from can_tpu_torch.ops import _build
+
+            _build.BUILD_ROOT = Path(spec["build_root"])
+            t0 = time.perf_counter()
+            _build.load_kernel_libraries([cc.KERNEL, cb.KERNEL])
+            out["build_s"] = time.perf_counter() - t0
+            out["build_hits"] = {k: v["cache_hit"] for k, v in _build.build_info.items()}
+            barrier("kernels-built")
+        batch = ddp_batch(Path(spec["root"]), rank, 2)
+        out["cases"] = {}
+        for tag, remat in DDP_CASES:
+            loss, sd, launches = ddp_step_state(batch, tag.split()[0], remat, 2)
+            path = Path(spec["out_dir"]) / f"{tag.replace(' ', '_')}_rank{rank}.pt"
+            torch.save(sd, path)
+            out["cases"][tag] = {"loss": loss, "state": str(path), "launches": launches}
+        # the gloo step's time (correctness, not NCCL's speed)
+        from can_tpu_torch.models import CANNet
+        from can_tpu_torch.ops import bn_moments as bm
+        from can_tpu_torch.parallel import make_dp_train_step, make_mesh
+        from can_tpu_torch.train import create_train_state, make_lr_schedule
+
+        model = CANNet(device="cuda", seed=SEED, batch_norm=True)
+        model = model.to(memory_format=torch.channels_last)
+        state = create_train_state(model, make_lr_schedule(1e-6, world_size=2))
+        step = make_dp_train_step(model, make_mesh(), bn_ops=bm.make_bn_ops("kernel"))
+        out["gloo_step_ms"] = time_ms(lambda: step(state, batch), reps=DDP_STEP_REPS)
+        del model, state, step
+        cc.reset_launches()  # the main path starts here
+        got = eval_cli.evaluate_checkpoint(eval_cli.parse_args(spec["eval_argv"]))
+        out["eval"] = {k: got[k] for k in ("mae", "mse", "num_images", "batches")}
+        out["eval"]["launches"] = cc.LAUNCHES  # ... and ends here
+        shutdown_runtime()
+    (Path(spec["out_dir"]) / f"{spec['mode']}_rank{out['topology']['process_index']}.json"
+     ).write_text(json.dumps(out))
+    return 0
+
+
+def ddp_batch(root: Path, rank: int, nproc: int):
+    """This rank's slice of the fixed batch (the first launch of the
+    smoke's training schedule, ``fixed_batch``), on the card: the
+    lockstep batcher's own slicing."""
+    from can_tpu_torch.data import CrowdDataset, ShardedBatcher
+    from can_tpu_torch.train.steps import batch_to_device
+
+    ds = CrowdDataset(str(root / "train_data" / "images"),
+                      str(root / "train_data" / "ground_truth"))
+    batch = next(ShardedBatcher(ds, TRAIN_BATCH // nproc, seed=SEED,
+                                pad_multiple=TRAIN_PAD, process_index=rank,
+                                process_count=nproc).epoch(0))
+    return batch_to_device(batch, "cuda")
+
+
+def _update_rel(old: dict, got: dict, want: dict) -> float:
+    """The update of all floating weights and statistics together, in
+    relative L2 norm: |(got - old) - (want - old)| / |want - old|."""
+    import torch
+
+    num = den = 0.0
+    for k, w in want.items():
+        if not torch.is_floating_point(w):
+            continue
+        d = want[k].double() - old[k].double()
+        num += float(((got[k].double() - old[k].double()) - d).pow(2).sum())
+        den += float(d.pow(2).sum())
+    return (num / den) ** 0.5
+
+
+def phase_ddp(work: Path) -> dict:
+    """World 1 over NCCL (torchrun, the train CLI) bitwise against no
+    process group; world 2 over gloo on one card against world 1, bitwise
+    against itself; evaluation at world 2 against world 1."""
+    import torch
+
+    from can_tpu_torch.cli import test as eval_cli
+    from can_tpu_torch.models import CANNet
+    from can_tpu_torch.ops import cuda_bn as cb
+    from can_tpu_torch.ops import cuda_context as cc
+    from can_tpu_torch.utils.checkpoint import CheckpointManager
+
+    root = train_data(work)
+    ddp_dir = work / "ddp"
+    ddp_dir.mkdir(exist_ok=True)
+    counts = {"bn": 0, "bn_backward": 0, "context": 0}
+
+    def add(launches):
+        for k, v in launches.items():
+            counts[k] += v
+
+    # -- world 1 over NCCL, against no process group --------------------------
+    base = ["--data_root", str(root), "--syncBN", "--bn-impl", "kernel",
+            "--batch-size", str(TRAIN_BATCH), "--pad-multiple", str(TRAIN_PAD),
+            "--no-remnant-batches", "--epochs", "1", "--max-steps-per-epoch",
+            str(TRAIN_STEPS), "--lr", "1e-6", "--seed", str(SEED)]
+    from can_tpu_torch.cli import train as train_cli
+
+    ck0, ck1 = ddp_dir / "ckpt_nogroup", ddp_dir / "ckpt_world1"
+    batch = fixed_batch(root)
+    cb.reset_launches()
+    cc.reset_launches()  # the main path starts here
+    train_cli.train(train_cli.parse_args(base + ["--checkpoint-dir", str(ck0)]))
+    add({"bn": cb.LAUNCHES, "bn_backward": cb.BACKWARD_LAUNCHES,
+         "context": cc.LAUNCHES})  # ... and ends here
+    torch.cuda.empty_cache()
+    spec = ddp_dir / "world1.json"
+    spec.write_text(json.dumps({"mode": "world1", "root": str(root),
+                                "out_dir": str(ddp_dir),
+                                "train_argv": base + ["--checkpoint-dir", str(ck1)]}))
+    env = dict(os.environ)
+    t0 = time.perf_counter()
+    run_ranks([([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                 "--nproc_per_node=1", str(ROOT / "chip_smoke.py"), "--ddp-worker",
+                 str(spec)], env)], ddp_dir, "world1")
+    w1_s = time.perf_counter() - t0
+    w1 = json.loads((ddp_dir / "world1_rank0.json").read_text())
+    add(w1["launches"])
+    topo = w1["topology"]
+    if (topo["backend"], topo["process_count"], topo["source"]) != ("nccl", 1, "torchrun"):
+        fail(f"[ddp] world 1: topology {topo}, want nccl, 1 process, from torchrun")
+    a = CheckpointManager(str(ck0)).model_state_dict(0)
+    b = CheckpointManager(str(ck1)).model_state_dict(0)
+    bad = [k for k in a if not torch.equal(a[k], b[k])]
+    mae0 = json.loads((ck0 / "0" / "metrics.json").read_text())
+    mae1 = json.loads((ck1 / "0" / "metrics.json").read_text())
+    if bad or mae0 != mae1 or w1["summary"]["world_size"] != 1:
+        fail(f"[ddp] world 1 over NCCL differs from no process group: "
+             f"{len(bad)} tensors ({bad[:4]}), metrics {mae1} vs {mae0}")
+    for key in ("bn", "bn_backward"):
+        if w1["launches"][key] != BN_LAYERS * w1["summary"]["steps"]:
+            fail(f"[ddp] world 1: {key} launched {w1['launches'][key]} times, "
+                 f"want {BN_LAYERS} x {w1['summary']['steps']}")
+    plain = statistics.median(w1["step_ms"]["plain"])
+    ddp = statistics.median(w1["step_ms"]["ddp"])
+    log(f"[ddp] world 1 over NCCL (torchrun --standalone --nproc_per_node=1, the "
+        f"train CLI): {w1['summary']['steps']} steps, {len(a)} model tensors and "
+        f"the eval metrics {mae1} bitwise equal to the same run with no process "
+        f"group; launches on rank 0: bn_moments {w1['launches']['bn']}, "
+        f"bn_moments_backward {w1['launches']['bn_backward']}, context_fused "
+        f"{w1['launches']['context']}; the torchrun call took {w1_s:.1f} s")
+    log(f"[ddp] world 1 step at {tuple(batch['image'].shape[:3])} f32: DDP "
+        f"{' / '.join(f'{t:.2f}' for t in w1['step_ms']['ddp'])} ms against no "
+        f"DDP {' / '.join(f'{t:.2f}' for t in w1['step_ms']['plain'])} ms "
+        f"(medians of {DDP_STEP_REPS} single steps per CUDA-event pair, in turns): "
+        f"overhead {100 * (ddp / plain - 1):+.2f}% (generation "
+        f"{w1['generation']} of the worker's runtime)")
+
+    # -- world 2 over gloo on one card, against world 1 ----------------------
+    refs = {}
+    for tag, remat in DDP_CASES:
+        loss, sd, launches = ddp_step_state(batch, tag.split()[0], remat, 1)
+        refs[tag] = (loss, sd)
+        add(launches)
+    old = {k: v.detach().cpu().clone() for k, v in
+           CANNet(device="cpu", seed=SEED, batch_norm=True).state_dict().items()}
+    del batch
+    torch.cuda.empty_cache()
+    eval_argv = ["--data_root", str(root), "--checkpoint-dir", str(ck1), "--syncBN",
+                 "--num-workers", "0"]
+    runs = []
+    for run in ("a", "b"):
+        out_dir = ddp_dir / f"world2_{run}"
+        out_dir.mkdir(exist_ok=True)
+        port = _free_port()
+        cmds = []
+        for rank in range(2):
+            spec = out_dir / f"spec{rank}.json"
+            spec.write_text(json.dumps({
+                "mode": "world2", "root": str(root), "out_dir": str(out_dir),
+                "eval_argv": eval_argv + ["--batch-size", str(DDP_RANK_BATCH)],
+                # run a: both ranks build the kernels at once, from nothing
+                "build_root": str(out_dir / "build") if run == "a" else ""}))
+            cmds.append(([sys.executable, str(ROOT / "chip_smoke.py"), "--ddp-worker",
+                          str(spec)],
+                         dict(os.environ, RANK=str(rank), WORLD_SIZE="2",
+                              LOCAL_RANK=str(rank), MASTER_ADDR="127.0.0.1",
+                              MASTER_PORT=str(port))))
+        t0 = time.perf_counter()
+        run_ranks(cmds, ddp_dir, f"world2_{run}")
+        secs = time.perf_counter() - t0
+        ranks = [json.loads((out_dir / f"world2_rank{r}.json").read_text())
+                 for r in range(2)]
+        for r in ranks:
+            for c in r["cases"].values():
+                add(c["launches"])
+            add({"context": r["eval"]["launches"]})
+        runs.append(ranks)
+        log(f"[ddp] world 2 over gloo, run {run}: {secs:.1f} s for both ranks; "
+            + ("kernel build with both ranks compiling at once: "
+               + ", ".join(f"rank {i} {r['build_s']:.2f} s (cache hits "
+                           f"{r['build_hits']})" for i, r in enumerate(ranks)) + "; "
+               if run == "a" else "")
+            + "launches per rank: " + "; ".join(
+                f"rank {i} " + ", ".join(
+                    f"{tag} bn {c['launches']['bn']}/{c['launches']['bn_backward']} "
+                    f"context {c['launches']['context']}"
+                    for tag, c in r["cases"].items())
+                + f", eval context {r['eval']['launches']}" for i, r in enumerate(ranks))
+            + f"; gloo step {ranks[0]['gloo_step_ms']:.1f} ms (gloo through the "
+              f"host: a correctness figure, not NCCL's speed)")
+    states = {(run, r, tag): torch.load(runs[run][r]["cases"][tag]["state"])
+              for run in range(2) for r in range(2) for tag, _ in DDP_CASES}
+    for tag, remat in DDP_CASES:
+        want_launch = {"bn": BN_LAYERS * (2 if remat else 1), "bn_backward": BN_LAYERS,
+                       "context": 2 if remat else 1}
+        for run in range(2):
+            for r in range(2):
+                got = runs[run][r]["cases"][tag]["launches"]
+                if got != want_launch:
+                    fail(f"[ddp] world 2 {tag}: rank {r} launches {got}, want "
+                         f"{want_launch}")
+        # the replicas agree, and a second world-2 run repeats bitwise
+        for key in ((0, 1, tag), (1, 0, tag), (1, 1, tag)):
+            bad, worst = snap_diff(states[(0, 0, tag)], states[key])
+            if bad:
+                fail(f"[ddp] world 2 {tag}: run/rank {key[:2]} differs from run "
+                     f"a rank 0 in {len(bad)} tensors (worst {worst:.3e})")
+        dt = tag.split()[0]
+        loss2 = runs[0][0]["cases"][tag]["loss"]
+        loss1, sd1 = refs[tag]
+        loss_rel = abs(loss2 - loss1) / abs(loss1)
+        upd = _update_rel(old, states[(0, 0, tag)], sd1)
+        log(f"[ddp] world 2 ({DDP_RANK_BATCH} images per rank) against world 1 "
+            f"({TRAIN_BATCH} images), one {tag} step: loss {loss2:.9g} vs "
+            f"{loss1:.9g} (rel {loss_rel:.2e}, tolerance {DDP_LOSS_RTOL[dt]:g}); the "
+            f"update of all weights and statistics within {upd:.3e} relative L2 "
+            f"(tolerance {DDP_UPDATE_RTOL[dt]:g}); both ranks and a second world-2 "
+            f"run bitwise equal")
+        if loss_rel > DDP_LOSS_RTOL[dt] or not upd <= DDP_UPDATE_RTOL[dt]:
+            fail(f"[ddp] world 2 {tag} is off world 1: loss rel {loss_rel:.2e}, "
+                 f"update rel {upd:.3e}")
+    bad, worst = snap_diff(states[(0, 0, "f32")], states[(0, 0, "f32 remat")])
+    if bad:
+        fail(f"[ddp] world 2: the remat step differs from the plain step in "
+             f"{len(bad)} tensors (worst {worst:.3e})")
+    log("[ddp] world 2: the remat step bitwise equal to the plain step")
+
+    # -- evaluation at world 2 against world 1 ---------------------------------
+    cc.reset_launches()  # the main path starts here
+    one = eval_cli.evaluate_checkpoint(eval_cli.parse_args(
+        eval_argv + ["--batch-size", str(TRAIN_BATCH)]))
+    one_launches = cc.LAUNCHES  # ... and ends here
+    add({"context": one_launches})
+    for run in range(2):
+        for r in range(2):
+            two = runs[run][r]["eval"]
+            for k in ("mae", "mse"):
+                rel = abs(two[k] - one[k]) / abs(one[k])
+                if rel > EVAL_RTOL or two["num_images"] != one["num_images"]:
+                    fail(f"[ddp] eval at world 2 (run {run}, rank {r}): {k} "
+                         f"{two[k]!r} vs world 1 {one[k]!r} (rel {rel:.2e})")
+    two = runs[0][0]["eval"]
+    log(f"[ddp] eval CLI at world 2 ({DDP_RANK_BATCH} per rank): MAE "
+        f"{two['mae']:.9g} MSE {two['mse']:.9g} over {two['num_images']} images, "
+        f"world 1 ({TRAIN_BATCH} per launch): MAE {one['mae']:.9g} MSE "
+        f"{one['mse']:.9g} (rtol {EVAL_RTOL}); context_fused launches per rank "
+        f"{two['launches']} ({two['batches']} batches), world 1 {one_launches} "
+        f"({one['batches']} batches)")
+    log(f"[ddp] launches in this phase: {counts}")
+    return counts
+
+
 def main(argv) -> int:
     import torch
 
     measure_only = argv == ["--measure-only"]
-    if argv and not measure_only:
-        fail(f"unknown arguments {argv} (none, or --measure-only)")
+    worker = len(argv) == 2 and argv[0] == "--ddp-worker"
+    if argv and not (measure_only or worker):
+        fail(f"unknown arguments {argv} (none, --measure-only, or "
+             f"--ddp-worker SPEC)")
 
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke run needs a GPU")
@@ -2316,6 +2754,8 @@ def main(argv) -> int:
     # needs this before the process's first cuBLAS call: PyTorch reads it
     # once, and the phases before the CLIs' use cuBLAS
     os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    if worker:
+        return ddp_worker(Path(argv[1]))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)
@@ -2365,7 +2805,8 @@ def main(argv) -> int:
              "train": phase_train(work), "remat": phase_remat(work),
              "s2d": phase_s2d(work), "vgg16": phase_vgg16(work),
              "slice5": phase_slice5(work), "legacy": phase_legacy(work),
-             "prepare": phase_prepare(work), "golden": phase_golden(work)}
+             "prepare": phase_prepare(work), "golden": phase_golden(work),
+             "ddp": phase_ddp(work)}
     counts = {k: sum(p[k] for p in paths.values())
               for k in ("bn", "bn_backward", "context")}
 

@@ -201,7 +201,9 @@ def test_unmasked_moments_and_collectives_refused():
     np.testing.assert_allclose(var_t.numpy(), y.var(axis=(0, 1, 2)), rtol=1e-5, atol=1e-6)
     np.testing.assert_allclose(mean_o.numpy(), mean_t.numpy(), rtol=1e-5, atol=1e-6)
     np.testing.assert_allclose(var_o.numpy(), var_t.numpy(), rtol=1e-5, atol=1e-6)
-    with pytest.raises(NotImplementedError, match="DDP"):
+    # SyncBN sums over a process group (tests/test_torch_ddp.py); a JAX
+    # mesh-axis name is no group
+    with pytest.raises(TypeError, match="ProcessGroup"):
         bm.masked_moments_onepass(yt, torch.ones(2, 4, 6, 1), ("data",))
     assert bm.make_bn_ops(None) is None and bm.make_bn_ops("twopass") is None
     with pytest.raises(ValueError, match="pallas"):

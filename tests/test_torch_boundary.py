@@ -7,7 +7,9 @@ on the CPU only when asked.
 * a source scan of ``can_tpu_torch/`` and ``chip_smoke.py`` finds no
   import of jax, flax, optax, orbax or ``can_tpu``;
 * without a CUDA device, the serve CLI without ``--platform cpu`` exits
-  non-zero naming the missing card.
+  non-zero naming the missing card, and no ``--platform default`` entry
+  point runs on the CPU when ``LOCAL_RANK`` names a card that is not there;
+* the VGG-16 converter's manifest is a copy of the JAX tool's.
 """
 
 import ast
@@ -45,7 +47,11 @@ def test_port_modules_are_found():
               "can_tpu_torch.cli.test", "can_tpu_torch.cli.common",
               "can_tpu_torch.data.planner", "can_tpu_torch.data.prepared",
               "can_tpu_torch.data.prefetch", "can_tpu_torch.utils.viz",
-              "can_tpu_torch.utils.logging"):
+              "can_tpu_torch.utils.logging",
+              # the DDP slice and the VGG-16 converter
+              "can_tpu_torch.parallel", "can_tpu_torch.parallel.runtime",
+              "can_tpu_torch.parallel.mesh", "can_tpu_torch.parallel.data_parallel",
+              "can_tpu_torch.tools.convert_vgg16"):
         assert m in mods
     assert (PKG / "csrc" / "context_fused.cu").is_file()
 
@@ -136,3 +142,56 @@ def test_serve_cli_without_a_card_exits_nonzero(tmp_path):
     assert proc.returncode != 0
     assert "CUDA" in proc.stderr and "--platform cpu" in proc.stderr
     assert "listening" not in proc.stdout
+
+
+def test_vgg16_manifest_is_the_jax_tools():
+    """The converter carries its own copy (the port reads nothing from
+    ``tools/``); the copy must not drift from the JAX tool's."""
+    import json
+
+    port = json.loads((PKG / "tools" / "vgg16_manifest.json").read_text())
+    ref = json.loads((ROOT / "tools" / "vgg16_manifest.json").read_text())
+    assert port == ref
+    assert len(port["entries"]) >= 20
+
+
+def test_local_rank_past_the_cards_never_runs_on_the_cpu(tmp_path, monkeypatch):
+    """A process whose ``LOCAL_RANK`` names a card that is not there (more
+    processes than GPUs) must fail, never fall back to the CPU: with one
+    visible card, ``LOCAL_RANK=1`` makes every ``--platform default``
+    entry point exit naming the missing card."""
+    from can_tpu_torch.cli import serve as serve_cli
+    from can_tpu_torch.cli import test as eval_cli
+    from can_tpu_torch.cli import train as train_cli
+    from can_tpu_torch.data import make_synthetic_dataset
+    from can_tpu_torch.models import random_state_dict
+    from can_tpu_torch.parallel import init_runtime, runtime_active
+
+    make_synthetic_dataset(str(tmp_path / "train_data"), 2, sizes=((64, 64),), seed=0)
+    make_synthetic_dataset(str(tmp_path / "test_data"), 2, sizes=((64, 64),), seed=1)
+    pth = tmp_path / "w.pth"
+    torch.save({k: torch.from_numpy(v) for k, v in random_state_dict(0).items()}, pth)
+    for var in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "COORDINATOR_ADDRESS",
+                "SLURM_NTASKS", "SLURM_PROCID"):
+        monkeypatch.delenv(var, raising=False)
+    monkeypatch.setenv("LOCAL_RANK", "1")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(NoCudaDeviceError, match="LOCAL_RANK 1"):
+        resolve_device("default")
+    assert resolve_device("default", local_rank=0) == torch.device("cuda", 0)
+    assert resolve_device("cpu") == torch.device("cpu")
+    with pytest.raises(NoCudaDeviceError, match="LOCAL_RANK 1"):
+        init_runtime(platform="default")
+    assert not runtime_active()
+    data = ["--data_root", str(tmp_path)]
+    for run, argv in (
+            (lambda a: train_cli.train(train_cli.parse_args(a)),
+             data + ["--checkpoint-dir", str(tmp_path / "ck")]),
+            (lambda a: eval_cli.evaluate_checkpoint(eval_cli.parse_args(a)),
+             data + ["--torch-pth", str(pth)]),
+            (lambda a: serve_cli.build_service(serve_cli.parse_args(a)),
+             ["--torch-pth", str(pth), "--port", "0"])):
+        with pytest.raises(SystemExit, match="LOCAL_RANK 1"):
+            run(argv)
+        assert not runtime_active()
