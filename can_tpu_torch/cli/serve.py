@@ -1,7 +1,7 @@
 """Online serving CLI: load CANNet weights, warm up the bucket ladder,
 answer count/density requests over HTTP on the card.
 
-Single-replica counterpart of ``can_tpu/cli/serve.py``::
+Single-engine counterpart of ``can_tpu/cli/serve.py`` (``--replicas 1``)::
 
     python -m can_tpu_torch.cli.serve --torch-pth epoch_354.pth \\
         --bucket-shapes 384x512,512x768,768x1024 --max-batch 8 --port 8000
@@ -17,6 +17,15 @@ model with its running statistics under ``--syncBN``), a reference
 ``.pth`` or a ``save_params_npz`` ``.npz``.  ``--platform default`` (or
 ``gpu``) runs on the CUDA device and exits non-zero when there is none;
 ``--platform cpu`` is the explicit CPU run.
+
+At its defaults the service runs the scheduling core's priced sub-batch
+menu (``--menu-budget 3``) and priced flush (``--flush-policy priced``);
+``--menu-budget 1 --flush-policy timer`` is the service without it.
+Clients opt into per-camera stream sessions with
+``?stream_id=cam1&frame_seq=17`` (``serve/streams.py``).  The fleet
+(``--replicas`` >= 2), its AOT bundles and the autoscaler come with ROADMAP
+Queue 1 item 3b: their flags are parsed and validated as the JAX CLI
+does, and ``--replicas`` > 1 is refused.
 """
 
 from __future__ import annotations
@@ -28,7 +37,11 @@ from typing import List, Tuple
 import numpy as np
 
 from can_tpu_torch.device import PLATFORMS, NoCudaDeviceError, resolve_device
-from can_tpu_torch.serve.quant import INT8_MESSAGE, SERVE_DTYPES
+from can_tpu_torch.serve.quant import SERVE_DTYPES
+
+FLEET_MESSAGE = ("--replicas > 1 (the multi-replica fleet, with "
+                 "--aot-bundle/--aot-bake/--autoscale-*) is not ported yet: "
+                 "it comes with ROADMAP Queue 1 item 3b")
 
 
 def parse_bucket_shapes(spec: str) -> List[Tuple[int, int]]:
@@ -67,16 +80,35 @@ def parse_args(argv=None):
     p.add_argument("--syncBN", action="store_true",
                    help="the checkpoint is the BatchNorm model (served with "
                         "its running statistics)")
+    p.add_argument("--seed", type=int, default=0,
+                   help="the JAX CLI's flag; no weights are drawn here")
     p.add_argument("--bucket-shapes", type=parse_bucket_shapes,
                    default=parse_bucket_shapes("384x512,512x768,768x1024"),
                    help="comma-separated HxW bucket ladder; requests snap UP "
                         "per axis to the smallest covering bound, and every "
                         "(H bound, W bound) pair is warmed at startup")
     p.add_argument("--max-batch", type=int, default=8,
-                   help="requests per micro-batch (every launch pads to it)")
+                   help="the largest launch (the top of the sub-batch menu)")
     p.add_argument("--max-wait-ms", type=float, default=5.0,
-                   help="flush a partial batch this long after its oldest "
-                        "request arrived")
+                   help="latency CAP on batching: the priced flush deadline "
+                        "never waits past this; with --flush-policy timer it "
+                        "is the fixed flush deadline itself")
+    p.add_argument("--menu-budget", type=int, default=None,
+                   help="launch sizes per (bucket, dtype) in the priced "
+                        "sub-batch menu (sched.select_menu; default 3): a "
+                        "2-request flush launches a 2-slot batch instead of "
+                        "padding to --max-batch; every menu size is warmed. "
+                        "1 = the single max-batch size")
+    p.add_argument("--flush-policy", type=str, default="priced",
+                   choices=["priced", "timer"],
+                   help="priced: a group flushes the moment waiting longer "
+                        "cannot beat launch-cost amortisation given its "
+                        "arrival rate and deadline slack; timer: the fixed "
+                        "--max-wait-ms deadline")
+    p.add_argument("--dispatch-order", type=str, default="priced",
+                   choices=["priced", "fifo"],
+                   help="fleet work-queue order (sched.pick_work; fleet "
+                        "only, ROADMAP Queue 1 item 3b)")
     p.add_argument("--queue-capacity", type=int, default=64,
                    help="hard bound on queued requests (beyond: queue_full)")
     p.add_argument("--high-water", type=int, default=None,
@@ -86,10 +118,51 @@ def parse_args(argv=None):
     p.add_argument("--deadline-ms", type=float, default=None,
                    help="default per-request deadline (expired requests are "
                         "rejected, never dispatched)")
+    p.add_argument("--replicas", type=int, default=1,
+                   help="serve-engine replicas, one per GPU (>= 2 is the "
+                        "fleet: ROADMAP Queue 1 item 3b, refused here)")
     p.add_argument("--serve-dtype", type=str, default="f32",
                    choices=list(SERVE_DTYPES),
                    help="f32 = full f32 (TF32 off); bf16 = bf16 weights and "
-                        "compute with f32 accumulation; int8 = not ported yet")
+                        "compute with f32 accumulation; int8 = weight-only "
+                        "post-training quantisation (per-output-channel "
+                        "scales, int8 resident on the card, dequantised to "
+                        "f32 per launch, f32 compute)")
+    p.add_argument("--bf16", action="store_true",
+                   help="LEGACY bf16 compute with f32 weights; superseded "
+                        "by --serve-dtype bf16, conflict if both given")
+    p.add_argument("--aot-bundle", type=str, default="",
+                   help="fleet only (ROADMAP Queue 1 item 3b)")
+    p.add_argument("--aot-bake", type=str, default="",
+                   help="fleet only (ROADMAP Queue 1 item 3b)")
+    p.add_argument("--autoscale-max", type=int, default=0,
+                   help="fleet only: the autoscaler's replica ceiling "
+                        "(> --replicas; 0 = off)")
+    p.add_argument("--autoscale-min", type=int, default=None,
+                   help="fleet only: autoscaler floor (default: --replicas)")
+    p.add_argument("--autoscale-interval-s", type=float, default=1.0,
+                   help="fleet only: autoscaler evaluation period")
+    p.add_argument("--probe-cooldown-s", type=float, default=5.0,
+                   help="fleet only: probation cooldown before a "
+                        "quarantined replica's first health probe")
+    p.add_argument("--watchdog-slack", type=float, default=10.0,
+                   help="fleet only: hang-watchdog deadline = expected "
+                        "execute time x this slack")
+    p.add_argument("--watchdog-default-s", type=float, default=30.0,
+                   help="fleet only: hang-watchdog deadline before any "
+                        "timing exists")
+    p.add_argument("--stream-ttl-s", type=float, default=300.0,
+                   help="evict a stream session idle this long (host-side "
+                        "state: count/density EWMA, frame sequence; clients "
+                        "opt in per request with ?stream_id=...&frame_seq=N)")
+    p.add_argument("--degrade-policy", type=str, default="priced",
+                   choices=["priced", "off"],
+                   help="priced: the per-stream degradation ladder — full "
+                        "inference -> frame-skip (answer from the session "
+                        "EWMA, labelled degraded + staleness, no launch) -> "
+                        "reject, driven by arrival rate against the sched "
+                        "core's priced drain cost with hysteresis; off: "
+                        "sessions and sequence hygiene only, never skip")
     p.add_argument("--u8-warmup", action="store_true",
                    help="also warm uint8-input batches, for clients POSTing "
                         "?raw=1 (bytes on the wire, normalised on the device)")
@@ -104,9 +177,50 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def build_service(args):
+def validate_args(args) -> None:
+    """The JAX CLI's flag checks, in its order and with its messages
+    (before the weights load), then the fleet's refusal (ROADMAP Queue 1
+    item 3b)."""
+    if args.bf16 and args.serve_dtype != "f32":
+        raise SystemExit("--bf16 is the legacy f32-params/bf16-compute "
+                         "mode; with --serve-dtype use the mode itself "
+                         "(drop --bf16)")
+    if args.replicas < 1:
+        raise SystemExit(f"--replicas must be >= 1, got {args.replicas}")
+    if args.menu_budget is not None and not 1 <= args.menu_budget <= 8:
+        raise SystemExit(f"--menu-budget must be in [1, 8], got "
+                         f"{args.menu_budget}")
+    if args.stream_ttl_s <= 0:
+        raise SystemExit(f"--stream-ttl-s must be positive, got "
+                         f"{args.stream_ttl_s}")
+    if args.max_body_mb <= 0:
+        raise SystemExit(f"--max-body-mb must be positive, got "
+                         f"{args.max_body_mb}")
+    fleet_only = ["--aot-bundle", "--aot-bake", "--autoscale-max"]
+    if args.replicas <= 1 and (args.aot_bundle or args.aot_bake
+                               or args.autoscale_max):
+        raise SystemExit(f"{'/'.join(fleet_only)} need fleet mode "
+                         f"(--replicas >= 2)")
+    if args.autoscale_max and args.autoscale_max <= args.replicas:
+        raise SystemExit(f"--autoscale-max ({args.autoscale_max}) must "
+                         f"exceed --replicas ({args.replicas})")
+    if args.autoscale_max and args.autoscale_min is not None:
+        if not 1 <= args.autoscale_min <= args.autoscale_max:
+            raise SystemExit(
+                f"--autoscale-min ({args.autoscale_min}) must be in "
+                f"[1, --autoscale-max={args.autoscale_max}]")
+    if args.replicas > 1:
+        raise SystemExit(FLEET_MESSAGE)
+    if args.max_batch < 1:
+        raise SystemExit(f"--max-batch must be >= 1, got {args.max_batch}")
+
+
+def build_service(args, telemetry=None):
     """Engine + warmed service from parsed args (no networking) — the seam
-    tests and ``chip_smoke.py`` drive; ``main`` adds HTTP around it."""
+    tests and ``chip_smoke.py`` drive; ``main`` adds HTTP around it.
+    ``telemetry``: an object with ``emit(kind, **payload)``, or None."""
+    import torch
+
     from can_tpu_torch.cli.test import load_params, validate_params_source
     from can_tpu_torch.serve import CountService, ServeEngine
 
@@ -115,16 +229,11 @@ def build_service(args):
     except NoCudaDeviceError as e:
         raise SystemExit(f"[serve] {e}")
     validate_params_source(args)
-    if args.serve_dtype == "int8":
-        raise SystemExit(INT8_MESSAGE)
-    if args.max_batch < 1:
-        raise SystemExit(f"--max-batch must be >= 1, got {args.max_batch}")
-    if args.max_body_mb <= 0:
-        raise SystemExit(f"--max-body-mb must be positive, got "
-                         f"{args.max_body_mb}")
+    validate_args(args)
     state_dict, _ = load_params(args)
     engine = ServeEngine(state_dict, device=device,
-                         serve_dtype=args.serve_dtype)
+                         serve_dtype=args.serve_dtype,
+                         compute_dtype=torch.bfloat16 if args.bf16 else None)
     high_water = (args.high_water if args.high_water is not None
                   else max(1, (3 * args.queue_capacity) // 4))
     shapes = args.bucket_shapes
@@ -135,13 +244,21 @@ def build_service(args):
                            queue_capacity=args.queue_capacity,
                            high_water=high_water,
                            default_deadline_ms=args.deadline_ms,
-                           bucket_ladder=ladder, max_body_mb=args.max_body_mb)
-    # any (H bound, W bound) pairing can occur: warm the whole cross product
+                           bucket_ladder=ladder, telemetry=telemetry,
+                           menu_budget=args.menu_budget,
+                           flush_policy=args.flush_policy,
+                           stream_ttl_s=args.stream_ttl_s,
+                           degrade_policy=args.degrade_policy,
+                           max_body_mb=args.max_body_mb)
+    # any (H bound, W bound) pairing can occur: warm the whole cross
+    # product, at every menu size
     grid = [(h, w) for h in ladder[0] for w in ladder[1]]
     dtypes = (np.float32, np.uint8) if args.u8_warmup else (np.float32,)
     report = service.warmup(grid, dtypes=dtypes)
+    menu = service.stats()["sched"]["menu"]
     print(f"[serve] warmup: {report['compiles']} programs over "
-          f"{report['shapes']} bucket shapes [{args.serve_dtype}] on "
+          f"{report['shapes']} bucket shapes x menu {tuple(menu)} "
+          f"[{args.serve_dtype}{', bf16 compute' if args.bf16 else ''}] on "
           f"{device} in {report['seconds']:.1f}s")
     return service
 

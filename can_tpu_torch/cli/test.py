@@ -194,7 +194,8 @@ def evaluate_checkpoint(args, *, prefetch: Optional[int] = None) -> dict:
     "eval_s" (the eval epoch's wall time), "epoch", "density" (the
     ``--show-index`` item's estimated map, (h, w, 1), or None),
     "viz_paths"}``.  ``prefetch``: batches put on the device ahead
-    (default: ``DevicePut``'s depth, 2 on the card, 0 on the CPU).
+    (default: the priced ``sched.prefetch_depth_for`` on the card, 0 on
+    the CPU).
     Raises SystemExit on bad arguments and without the asked-for
     device.  Joins the process group a launcher describes and leaves it
     at the end, unless the caller formed it."""
@@ -283,7 +284,8 @@ def _evaluate(args, roots, device, prefetch) -> dict:
         metrics = evaluate(make_dp_eval_step(mesh, compute_dtype=compute_dtype),
                            model, batcher.epoch(0), put_fn=put,
                            dataset_size=batcher.dataset_size,
-                           prefetch=put.depth if prefetch is None else prefetch)
+                           prefetch=(put.depth_for(batcher) if prefetch is None
+                                     else prefetch))
         eval_s = time.perf_counter() - t0
     finally:
         batcher.close()

@@ -23,7 +23,8 @@ package) buckets by exact shapes when at most ``--max-buckets`` occur,
 else by the planner's ladder; straggler groups launch at their exact
 size and the train batcher caps each launch at the card's memory
 (``cli/common.py``).  Batches load on ``--num-workers`` threads and are
-put on the card two ahead (``data/prefetch.py``); density maps come from
+put on the card ahead at the scheduling core's priced depth
+(``sched.prefetch_depth_for``, ``data/prefetch.py``); density maps come from
 a prepared store where one validates (``--prepared-root``).
 
 Under a launcher (``torchrun`` / ``torch.distributed.launch --use_env``,
@@ -427,6 +428,10 @@ def _train(args, roots, topo) -> dict:
                                     compute_dtype=compute_dtype, bn_ops=bn_ops)
     eval_step = make_dp_eval_step(mesh, compute_dtype=compute_dtype)
     put = DevicePut(device)
+    # priced prefetch depth (the scheduling core's): once per run, a pure
+    # function of each batcher's epoch-invariant schedule
+    prefetch = put.depth_for(train_batcher)
+    eval_prefetch = put.depth_for(test_batcher)
     logger = (MetricLogger(use_wandb=args.wandb, run_id_file=os.path.join(
         args.checkpoint_dir, "wandb_run_id.txt")) if main else None)
     summary = {"steps": 0, "schedule_steps": 0, "eval_batches": 0,
@@ -441,7 +446,7 @@ def _train(args, roots, topo) -> dict:
             lr = state.lr()
             state, stats = train_one_epoch(train_step, state, batches,
                                            put_fn=put, epoch=epoch,
-                                           prefetch=put.depth)
+                                           prefetch=prefetch)
             row = {"epoch": epoch, "train_loss": stats.loss, "lr": lr,
                    "img_per_s": stats.img_per_s, "epoch_s": stats.seconds,
                    "steps": stats.steps,
@@ -449,7 +454,7 @@ def _train(args, roots, topo) -> dict:
             summary["steps"] += stats.steps
             if (epoch + 1) % args.eval_interval == 0 or epoch == args.epochs - 1:
                 metrics = evaluate(eval_step, state.model, test_batcher.epoch(0),
-                                   put_fn=put, prefetch=put.depth,
+                                   put_fn=put, prefetch=eval_prefetch,
                                    dataset_size=test_batcher.dataset_size)
                 summary["eval_batches"] += metrics["batches"]
                 row.update(mae=metrics["mae"], mse=metrics["mse"])

@@ -69,13 +69,23 @@ class DevicePut:
     """``put_fn`` for ``prefetch_to_device``: host ``Batch`` -> the step's
     dict of tensors on ``device`` (an ``InFlight`` on a CUDA device).
     ``depth``: how far ahead to put on this device (``DEPTH`` on the card,
-    0 on the CPU)."""
+    0 on the CPU); the CLIs price it per batcher with ``depth_for``."""
 
     def __init__(self, device):
         self.device = torch.device(device)
         self.stream = (torch.cuda.Stream(self.device)
                        if self.device.type == "cuda" else None)
         self.depth = DEPTH if self.stream is not None else 0
+
+    def depth_for(self, batcher) -> int:
+        """The priced depth for ``batcher``'s schedule on the card
+        (``sched.prefetch_depth_for``, as the JAX CLIs price it); 0 on
+        the CPU."""
+        if self.stream is None:
+            return 0
+        from can_tpu_torch.sched import prefetch_depth_for
+
+        return prefetch_depth_for(batcher)
 
     def __call__(self, batch):
         host = batch_tensors(batch)

@@ -1,6 +1,7 @@
-"""can_tpu_torch.serve — online CANNet counting: bucketed micro-batches,
-deadlines, backpressure, HTTP (counterpart of ``can_tpu/serve``, single
-engine)::
+"""can_tpu_torch.serve — online CANNet counting: bucketed micro-batches
+priced by the scheduling core, deadlines, backpressure, per-stream
+sessions, f32/bf16/int8 weights, HTTP (counterpart of ``can_tpu/serve``,
+single engine)::
 
     engine = ServeEngine(state_dict, device=resolve_device("default"))
     ladder = ((384, 512, 768), (512, 768, 1024))
@@ -9,17 +10,34 @@ engine)::
     svc.warmup([(h, w) for h in ladder[0] for w in ladder[1]])
     with svc:
         res = svc.predict(prepare_image(img), deadline_ms=200)
+        cam = svc.predict(prepare_image(frame), stream_id="cam1",
+                          frame_seq=17)  # cam.degraded, cam.staleness_s
+
+Guarantees: every submitted request resolves or is rejected with a typed
+reason; the engine's signature count is (bucket, menu size, dtype),
+all paid in ``warmup``.
 """
 
 from can_tpu_torch.serve.batcher import MicroBatcher
-from can_tpu_torch.serve.engine import ServeEngine
-from can_tpu_torch.serve.quant import SERVE_DTYPES, compute_dtype_for, quantize_tree
+from can_tpu_torch.serve.engine import ServeEngine, tree_signature
+from can_tpu_torch.serve.quant import (
+    PARITY_LADDER,
+    SERVE_DTYPES,
+    compute_dtype_for,
+    dequantize_tree,
+    host_tree,
+    param_bytes,
+    parity_report,
+    quantize_tree,
+)
 from can_tpu_torch.serve.queue import (
     REJECT_BACKPRESSURE,
     REJECT_DEADLINE,
     REJECT_ERROR,
     REJECT_QUEUE_FULL,
     REJECT_SHUTDOWN,
+    REJECT_STALE_FRAME,
+    REJECT_STREAM_OVERLOAD,
     BoundedRequestQueue,
     RejectedError,
     ServeRequest,
@@ -32,11 +50,23 @@ from can_tpu_torch.serve.service import (
     prepare_image,
     serve_http,
 )
+from can_tpu_torch.serve.streams import (
+    STREAM_RUNG_FULL,
+    STREAM_RUNG_REJECT,
+    STREAM_RUNG_SKIP,
+    StreamSession,
+    StreamSessionRegistry,
+    repin_target,
+)
 
 __all__ = [
-    "MicroBatcher", "ServeEngine", "SERVE_DTYPES", "compute_dtype_for",
-    "quantize_tree", "REJECT_BACKPRESSURE", "REJECT_DEADLINE", "REJECT_ERROR",
-    "REJECT_QUEUE_FULL", "REJECT_SHUTDOWN", "BoundedRequestQueue",
-    "RejectedError", "ServeRequest", "ServeResult", "CountService",
-    "ServeTicket", "make_http_handler", "prepare_image", "serve_http",
+    "BoundedRequestQueue", "CountService", "MicroBatcher", "PARITY_LADDER",
+    "SERVE_DTYPES", "compute_dtype_for", "dequantize_tree", "host_tree",
+    "param_bytes", "parity_report", "quantize_tree", "tree_signature",
+    "REJECT_BACKPRESSURE", "REJECT_DEADLINE", "REJECT_ERROR",
+    "REJECT_QUEUE_FULL", "REJECT_SHUTDOWN", "REJECT_STALE_FRAME",
+    "REJECT_STREAM_OVERLOAD", "RejectedError", "STREAM_RUNG_FULL",
+    "STREAM_RUNG_REJECT", "STREAM_RUNG_SKIP", "ServeEngine", "ServeRequest",
+    "ServeResult", "ServeTicket", "StreamSession", "StreamSessionRegistry",
+    "make_http_handler", "prepare_image", "repin_target", "serve_http",
 ]

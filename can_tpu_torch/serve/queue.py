@@ -1,6 +1,5 @@
 """Bounded request queue: deadlines, typed rejection, load shedding
-(counterpart of ``can_tpu/serve/queue.py:50-280``, without stream
-sessions).
+(counterpart of ``can_tpu/serve/queue.py``).
 
 Every admitted request RESOLVES — with a result or a typed rejection —
 never hangs: waiters block on a per-request event with a timeout, the
@@ -29,6 +28,10 @@ REJECT_BACKPRESSURE = "backpressure"  # load shedding above high_water
 REJECT_DEADLINE = "deadline"          # deadline expired before dispatch
 REJECT_SHUTDOWN = "shutdown"          # service closed with the request queued
 REJECT_ERROR = "error"                # dispatch raised; message in detail
+# stream sessions (serve/streams.py): a duplicate/out-of-order frame of a
+# stream's monotonic sequence, and the degradation ladder's last rung
+REJECT_STALE_FRAME = "stale_frame"
+REJECT_STREAM_OVERLOAD = "stream_overload"
 
 
 class RejectedError(RuntimeError):
@@ -51,7 +54,14 @@ class ServeResult:
     batch_fill: float                     # valid / total slots of its batch
     latency_s: float                      # submit -> resolve wall time
     queue_wait_s: Optional[float] = None  # submit -> batch assembly start
+    device_s: Optional[float] = None      # engine execute wall time
     trace_id: Optional[str] = None        # the request's id in responses
+    # stream sessions (serve/streams.py): a degraded answer was served
+    # from the stream's EWMA (no launch ran) and is ``staleness_s``
+    # seconds older than a fresh inference would be
+    degraded: bool = False
+    staleness_s: Optional[float] = None
+    stream_id: Optional[str] = None
 
 
 class ServeRequest:
@@ -65,11 +75,17 @@ class ServeRequest:
     _ids = itertools.count()
 
     def __init__(self, image: np.ndarray, *, deadline_s: Optional[float],
-                 want_density: bool = False, clock=time.monotonic):
+                 want_density: bool = False, clock=time.monotonic,
+                 stream_id: Optional[str] = None,
+                 frame_seq: Optional[int] = None):
         self.id = next(self._ids)
         self.image = image
         self.shape = tuple(image.shape[:2])
         self.want_density = bool(want_density)
+        # stream sessions: the camera this frame belongs to and its
+        # monotonic sequence number; None keeps the stateless path
+        self.stream_id = stream_id
+        self.frame_seq = None if frame_seq is None else int(frame_seq)
         self.t_submit = clock()
         self.deadline_ts = (None if deadline_s is None
                             else self.t_submit + float(deadline_s))
@@ -79,6 +95,7 @@ class ServeRequest:
         self._done_hooks: List = []
         self.trace_id: Optional[str] = None
         self.t_assembly: Optional[float] = None  # batch assembly began
+        self.t_ready: Optional[float] = None     # padded batch handed off
 
     def expired(self, now: float) -> bool:
         return self.deadline_ts is not None and now >= self.deadline_ts
@@ -174,9 +191,14 @@ class BoundedRequestQueue:
                     and self._outstanding <= self.low_water):
                 self._shedding = False
 
-    def offer(self, request: ServeRequest) -> Optional[str]:
+    def offer(self, request: ServeRequest, *,
+              reject: bool = True) -> Optional[str]:
         """Admit ``request`` or reject it; returns the reject reason (also
-        recorded on the request) or None when admitted."""
+        recorded on the request) or None when admitted.
+
+        ``reject=False`` returns the reason WITHOUT rejecting the request:
+        the stream path answers a refused frame from its session EWMA (the
+        caller resolves or rejects it, exactly once either way)."""
         with self._lock:
             if self._closed:
                 reason = REJECT_SHUTDOWN
@@ -193,7 +215,8 @@ class BoundedRequestQueue:
                 self._items.append(request)
                 self._nonempty.notify()
                 return None
-        request.reject(reason, f"outstanding {self.outstanding()}")
+        if reject:
+            request.reject(reason, f"outstanding {self.outstanding()}")
         return reason
 
     def wait_nonempty(self, timeout: Optional[float]) -> bool:

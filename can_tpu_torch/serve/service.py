@@ -1,12 +1,19 @@
 """CountService: the serving front door, programmatic and over HTTP
 (counterpart of ``can_tpu/serve/service.py``: ``prepare_image`` :63,
 ``CountService`` :120, ``make_http_handler`` :724, ``serve_http`` :943 —
-single engine; no fleet, stream sessions, autoscaler, rollout or
-telemetry bus in this slice)::
+the single-engine service; the fleet, its rollout and the autoscaler
+come with a later slice)::
 
-    client -> submit() -> BoundedRequestQueue -> MicroBatcher (thread)
-                                               -> ServeEngine.predict_batch
-                                               -> resolve ServeRequests
+    client -> submit() -> [stream session: admit / degrade]
+                       -> BoundedRequestQueue -> MicroBatcher (thread)
+                       -> ServeEngine.predict_batch -> resolve ServeRequests
+
+The scheduling core (``can_tpu_torch/sched``) prices the batcher's launch
+sizes and flush deadlines; ``menu_budget=1`` with ``flush_policy="timer"``
+is the service without it (every launch padded to ``max_batch``, flushed
+on the ``max_wait_ms`` timer).  ``telemetry``: an object with
+``emit(kind, **payload)`` that receives JAX's ``serve.request`` /
+``serve.batch`` / ``serve.reject`` events, or None.
 """
 
 from __future__ import annotations
@@ -22,6 +29,7 @@ import numpy as np
 
 from can_tpu_torch.data.dataset import normalize_host
 from can_tpu_torch.data.imageio import resize_linear
+from can_tpu_torch.sched import DEFAULT_MENU_BUDGET, ServeSched, costs_match
 from can_tpu_torch.serve.batcher import MicroBatcher
 from can_tpu_torch.serve.engine import ServeEngine
 from can_tpu_torch.serve.queue import (
@@ -29,16 +37,15 @@ from can_tpu_torch.serve.queue import (
     REJECT_DEADLINE,
     REJECT_QUEUE_FULL,
     REJECT_SHUTDOWN,
+    REJECT_STALE_FRAME,
+    REJECT_STREAM_OVERLOAD,
     BoundedRequestQueue,
     RejectedError,
     ServeRequest,
     ServeResult,
 )
+from can_tpu_torch.serve.streams import StreamSessionRegistry
 from can_tpu_torch.utils.profiling import StepTimer
-
-STREAMS_MESSAGE = ("stream sessions (stream_id/frame_seq) are not ported yet: "
-                   "they come with the serve scheduler/streams/fleet slice of "
-                   "can_tpu_torch")
 
 
 def prepare_image(image: np.ndarray, *, ds: int = 8,
@@ -74,10 +81,16 @@ class ServeTicket:
         self._service = service
         self.id = request.id
 
+    @property
+    def done(self) -> bool:
+        return self._request.done
+
     def result(self, timeout: Optional[float] = None) -> ServeResult:
         if timeout is None:
             if self._request.deadline_ts is not None:
-                timeout = (self._request.deadline_ts - time.monotonic()
+                # deadline_ts is on the service clock: "now" must be too
+                timeout = (self._request.deadline_ts
+                           - self._service._clock()
                            + self._service.grace_s)
             else:
                 timeout = self._service.default_result_timeout_s
@@ -85,46 +98,100 @@ class ServeTicket:
 
 
 class CountService:
-    """Owns the queue, the batcher thread and the engine.  Call
-    ``warmup()`` before traffic."""
+    """Owns the queue, the batcher thread, the engine and the stream
+    sessions.  Call ``warmup()`` before traffic.
+
+    menu_budget: launch sizes per (bucket, dtype) in the priced menu
+    (None = ``sched.DEFAULT_MENU_BUDGET``); flush_policy: "priced" or
+    "timer".  ``menu_budget=1`` with ``"timer"`` runs without the core.
+    stream_ttl_s / degrade_policy: the stream registry's TTL and ladder
+    ("priced" | "off").
+    """
 
     def __init__(self, engine: ServeEngine, *, max_batch: int = 8,
                  max_wait_ms: float = 5.0, queue_capacity: int = 64,
                  high_water: Optional[int] = None,
                  default_deadline_ms: Optional[float] = None,
-                 bucket_ladder=None, max_body_mb: float = 64.0):
+                 bucket_ladder=None, pad_multiple=None,
+                 min_bucket_h: Optional[int] = None,
+                 telemetry=None, clock=time.monotonic,
+                 menu_budget: Optional[int] = None,
+                 flush_policy: str = "priced",
+                 stream_ttl_s: float = 300.0,
+                 degrade_policy: str = "priced",
+                 max_body_mb: float = 64.0):
+        if flush_policy not in ("priced", "timer"):
+            raise ValueError(f"unknown flush_policy {flush_policy!r} "
+                             f"(priced | timer)")
         if max_body_mb <= 0:
-            raise ValueError(f"max_body_mb must be positive, got {max_body_mb}")
+            raise ValueError(f"max_body_mb must be positive, got "
+                             f"{max_body_mb}")
         self.engine = engine
+        budget = (DEFAULT_MENU_BUDGET if menu_budget is None
+                  else int(menu_budget))
+        if budget == 1 and flush_policy == "timer":
+            self.sched = None
+        else:
+            self.sched = ServeSched(int(max_batch),
+                                    max_wait_s=float(max_wait_ms) / 1e3,
+                                    menu_budget=budget,
+                                    priced_flush=flush_policy == "priced")
+        self.flush_policy = flush_policy
+        self.telemetry = telemetry
         self.max_batch = int(max_batch)
         self.default_deadline_s = (None if default_deadline_ms is None
                                    else float(default_deadline_ms) / 1e3)
         self.grace_s = max(1.0, 4 * float(max_wait_ms) / 1e3)
         self.default_result_timeout_s = 120.0
         self.max_body_bytes = int(float(max_body_mb) * 2 ** 20)
-        self.queue = BoundedRequestQueue(queue_capacity, high_water=high_water)
+        self._clock = clock
+        self.queue = BoundedRequestQueue(queue_capacity,
+                                         high_water=high_water, clock=clock)
         self.batcher = MicroBatcher(self.queue, self._dispatch,
                                     max_batch=max_batch,
                                     max_wait_ms=max_wait_ms,
-                                    bucket_ladder=bucket_ladder, ds=engine.ds,
-                                    on_reject=self._note_reject)
+                                    bucket_ladder=bucket_ladder,
+                                    pad_multiple=pad_multiple,
+                                    min_bucket_h=min_bucket_h,
+                                    ds=engine.ds, telemetry=telemetry,
+                                    clock=clock, on_reject=self._note_reject,
+                                    sched=self.sched)
         # request latency reservoir; read by HTTP threads while the
         # batcher thread records, hence under _lock
         self.latency = StepTimer()
         self._lock = threading.Lock()
         self._stats = {"submitted": 0, "completed": 0, "rejected": 0,
+                       "degraded": 0,
                        "batches": 0, "batch_slots": 0, "batch_valid": 0}
+        # the core's economics per launch: predicted vs realized cost
+        # (pixel units) and the launches per size
+        self._cost = {"predicted_cost_px": 0.0, "realized_cost_px": 0.0,
+                      "cost_mismatches": 0}
+        self._sizes: dict = {}
+        # stream sessions: HOST-side per-stream state (EWMAs, sequence
+        # gate, degradation ladder); requests without a stream_id never
+        # touch it
+        self.streams = StreamSessionRegistry(
+            ttl_s=stream_ttl_s, clock=clock, telemetry=telemetry,
+            sched=self.sched, policy=degrade_policy)
         self._started = False
         self._closed = False
         # image dtypes warmup() has run — the HTTP raw=1 gate
         self.warmed_dtypes: set = set()
         self._trace_prefix = f"req-{os.getpid():x}{os.urandom(2).hex()}"
 
+    def _emit(self, kind: str, **payload) -> None:
+        if self.telemetry is not None:
+            self.telemetry.emit(kind, **payload)
+
     # -- lifecycle -------------------------------------------------------
     def warmup(self, bucket_shapes: Sequence[Tuple[int, int]],
                dtypes=(np.float32,)) -> dict:
-        report = self.engine.warmup(bucket_shapes, self.max_batch,
-                                    dtypes=dtypes)
+        """Warm every (bucket, menu size, dtype): traffic then runs no new
+        signature."""
+        report = self.engine.warmup(
+            bucket_shapes, self.max_batch, dtypes=dtypes,
+            sizes=self.sched.menu if self.sched is not None else None)
         self.warmed_dtypes.update(np.dtype(dt) for dt in dtypes)
         return report
 
@@ -141,7 +208,7 @@ class CountService:
         self._closed = True
         for r in self.queue.close():
             r.reject(REJECT_SHUTDOWN, "service closing")
-            self._note_reject(REJECT_SHUTDOWN)
+            self._count_reject(REJECT_SHUTDOWN)
         self.batcher.close()
         self._started = False
 
@@ -154,15 +221,29 @@ class CountService:
     # -- the programmatic API --------------------------------------------
     def submit(self, image: np.ndarray, *,
                deadline_ms: Optional[float] = None,
-               want_density: bool = False) -> ServeTicket:
+               want_density: bool = False,
+               stream_id: Optional[str] = None,
+               frame_seq: Optional[int] = None,
+               trace_id: Optional[str] = None) -> ServeTicket:
         """Enqueue one prepared image (see ``prepare_image``).  Returns a
-        ticket; an immediate rejection (full queue, shedding, shutdown)
-        is stored on it."""
+        ticket; an immediate rejection (full queue, shedding, shutdown,
+        stale frame) is stored on it.
+
+        ``stream_id`` opts the request into a per-stream session
+        (``serve/streams.py``): the sequence gate on ``frame_seq`` and the
+        degradation ladder — under overload the frame may be answered
+        from the stream's EWMA (``degraded`` + ``staleness_s`` on the
+        result) instead of launched or rejected.  Without a stream_id the
+        request takes the stateless path."""
+        if frame_seq is not None and stream_id is None:
+            raise ValueError("frame_seq needs a stream_id (the sequence "
+                             "gate is per-stream)")
         deadline_s = (float(deadline_ms) / 1e3 if deadline_ms is not None
                       else self.default_deadline_s)
         req = ServeRequest(np.asarray(image), deadline_s=deadline_s,
-                           want_density=want_density)
-        req.trace_id = f"{self._trace_prefix}-{req.id}"
+                           want_density=want_density, clock=self._clock,
+                           stream_id=stream_id, frame_seq=frame_seq)
+        req.trace_id = trace_id or f"{self._trace_prefix}-{req.id}"
         ds = self.engine.ds
         if req.shape[0] % ds or req.shape[1] % ds:
             raise ValueError(
@@ -178,26 +259,103 @@ class CountService:
             self._stats["submitted"] += 1
         if self._closed:
             req.reject(REJECT_SHUTDOWN, "service closed")
-            self._note_reject(REJECT_SHUTDOWN)
+            self._count_reject(REJECT_SHUTDOWN)
             return ServeTicket(req, self)
-        reason = self.queue.offer(req)
+        if stream_id is None:
+            reason = self.queue.offer(req)
+            if reason is not None:
+                self._count_reject(reason)
+            return ServeTicket(req, self)
+        return self._submit_stream(req, bucket)
+
+    def _submit_stream(self, req: ServeRequest, bucket) -> ServeTicket:
+        """The stream admission path: the registry decides first (sequence
+        gate, degradation ladder), then the queue — and a queue refusal
+        degrades to the EWMA when one exists instead of rejecting."""
+        now = self._clock()
+        dec = self.streams.admit(req.stream_id, req.frame_seq, now, bucket)
+        if dec.kind == "stale":
+            req.reject(REJECT_STALE_FRAME, dec.detail)
+            self._count_reject(REJECT_STALE_FRAME)
+            return ServeTicket(req, self)
+        if dec.kind == "overload":
+            req.reject(REJECT_STREAM_OVERLOAD, dec.detail)
+            self._count_reject(REJECT_STREAM_OVERLOAD)
+            return ServeTicket(req, self)
+        if dec.kind == "degrade":
+            self._resolve_degraded(req, bucket, dec)
+            return ServeTicket(req, self)
+        self.streams.note_admitted(req)
+        reason = self.queue.offer(req, reject=False)
         if reason is not None:
-            self._note_reject(reason)
+            fb = self.streams.degrade_fallback(req.stream_id, now)
+            if fb is not None:
+                self._resolve_degraded(req, bucket, fb, fallback=reason)
+            else:
+                # refused with nothing to degrade to: un-commit the
+                # frame's sequence so the camera's retry passes the gate
+                self.streams.rollback_seq(req.stream_id, req.frame_seq,
+                                          dec.prior_seq)
+                req.reject(reason, f"outstanding {self.queue.outstanding()}")
+                self._count_reject(reason)
         return ServeTicket(req, self)
+
+    def _resolve_degraded(self, req: ServeRequest, bucket, dec,
+                          fallback: Optional[str] = None) -> None:
+        """Answer a stream frame from its session EWMA — no queue, no
+        batch, no launch.  Labelled ``degraded`` with its staleness, and
+        kept out of the latency reservoir (an instant EWMA answer in the
+        tail would make overload look like a latency win)."""
+        now = self._clock()
+        dens = None
+        if req.want_density and dec.density is not None:
+            h, w = req.shape
+            if dec.density.shape[:2] == (h // self.engine.ds,
+                                         w // self.engine.ds):
+                dens = dec.density
+        res = ServeResult(count=float(dec.count), density=dens,
+                          bucket_hw=tuple(bucket), batch_fill=0.0,
+                          latency_s=now - req.t_submit,
+                          queue_wait_s=0.0, device_s=0.0,
+                          trace_id=req.trace_id, degraded=True,
+                          staleness_s=dec.staleness_s,
+                          stream_id=req.stream_id)
+        req.resolve(res)
+        with self._lock:
+            self._stats["completed"] += 1
+            self._stats["degraded"] += 1
+        payload = {"request_id": req.id,
+                   "latency_s": round(res.latency_s, 6),
+                   "bucket": list(bucket), "ok": True,
+                   "trace_id": req.trace_id, "degraded": True,
+                   "stream": req.stream_id}
+        if dec.staleness_s is not None:
+            payload["staleness_s"] = dec.staleness_s
+        if fallback is not None:
+            payload["fallback"] = fallback
+        self._emit("serve.request", **payload)
 
     def predict(self, image: np.ndarray, *,
                 deadline_ms: Optional[float] = None,
                 want_density: bool = False,
-                timeout: Optional[float] = None) -> ServeResult:
+                timeout: Optional[float] = None,
+                stream_id: Optional[str] = None,
+                frame_seq: Optional[int] = None,
+                trace_id: Optional[str] = None) -> ServeResult:
         """submit + result in one call."""
         return self.submit(image, deadline_ms=deadline_ms,
-                           want_density=want_density).result(timeout)
+                           want_density=want_density, stream_id=stream_id,
+                           frame_seq=frame_seq,
+                           trace_id=trace_id).result(timeout)
 
     def stats(self) -> dict:
         with self._lock:
             s = dict(self._stats)
             lat = self.latency.percentiles()
+            cost = dict(self._cost)
+            sizes = dict(self._sizes)
         slots = max(s["batch_slots"], 1)
+        batches = max(s["batches"], 1)
         return {**s,
                 "queue_depth": self.queue.depth(),
                 "shedding": self.queue.shedding,
@@ -205,40 +363,122 @@ class CountService:
                 "latency_p50_s": lat["p50_s"],
                 "latency_p95_s": lat["p95_s"],
                 "latency_max_s": lat["max_s"],
-                "compile_count": self.engine.compile_count}
+                "compile_count": self.engine.compile_count,
+                # the scheduling core: its menu and flush policy, the
+                # launches per size, and predicted vs realized cost per
+                # batch (equal on every batch: cost_mismatches 0)
+                "sched": {
+                    "menu": (list(self.sched.menu) if self.sched is not None
+                             else [self.max_batch]),
+                    "flush_policy": self.flush_policy,
+                    "priced": self.sched is not None,
+                    "launches_by_size": {str(k): v for k, v in
+                                         sorted(sizes.items())},
+                    "predicted_cost_px_per_batch": round(
+                        cost["predicted_cost_px"] / batches, 3),
+                    "realized_cost_px_per_batch": round(
+                        cost["realized_cost_px"] / batches, 3),
+                    "cost_mismatches": cost["cost_mismatches"]},
+                # per-stream sessions: the degradation ladder's view
+                "streams": self.streams.stats()}
 
     def healthz(self) -> dict:
         return {"ok": not self._closed}
 
+    def rollout(self, params, batch_stats=None, *, run_config=None,
+                allow_config_change: bool = False) -> dict:
+        """Blue/green checkpoint flip — fleet engines only.  A
+        single-engine service has no second engine to stage on: restart
+        it, or call ``engine.swap_params`` between launches."""
+        raise RuntimeError("rollout needs a FleetEngine "
+                           "(serve with --replicas >= 2 fleet mode)")
+
     # -- batcher dispatch (runs on the batcher thread) -------------------
     def _dispatch(self, bucket_hw, batch, requests) -> None:
+        t0 = time.perf_counter()
         counts, density = self.engine.predict_batch(
             batch, want_density=any(r.want_density for r in requests))
-        now = time.monotonic()
-        fill = len(requests) / batch.image.shape[0]
+        # wall time on perf_counter even under a test's fake clock
+        execute_s = time.perf_counter() - t0
+        self._complete(bucket_hw, batch, requests, counts, density,
+                       execute_s, self.engine.last_batch_compiled)
+
+    def _complete(self, bucket_hw, batch, requests, counts, density,
+                  execute_s, compiled) -> None:
+        now = self._clock()
+        slots = batch.image.shape[0]
+        fill = len(requests) / slots
         ds = self.engine.ds
         for slot, req in enumerate(requests):
             h, w = req.shape
             dens = (np.asarray(density[slot, : h // ds, : w // ds])
                     if req.want_density else None)
             latency = now - req.t_submit
+            t_asm = req.t_assembly if req.t_assembly is not None else now
+            t_ready = req.t_ready if req.t_ready is not None else now
+            queue_wait = max(t_asm - req.t_submit, 0.0)
+            if req.stream_id is not None:
+                # fold the fresh count into the session BEFORE resolving:
+                # a degraded answer racing this completion serves it
+                self.streams.note_completed(req.stream_id,
+                                            float(counts[slot]), dens,
+                                            bucket_hw, now=now)
             req.resolve(ServeResult(
                 count=float(counts[slot]), density=dens,
                 bucket_hw=tuple(bucket_hw), batch_fill=fill,
-                latency_s=latency,
-                queue_wait_s=round(max(req.t_assembly - req.t_submit, 0.0), 6),
-                trace_id=req.trace_id))
+                latency_s=latency, queue_wait_s=round(queue_wait, 6),
+                device_s=round(execute_s, 6), trace_id=req.trace_id,
+                stream_id=req.stream_id))
             with self._lock:
                 self.latency.record(latency)
+            self._emit("serve.request", request_id=req.id,
+                       latency_s=round(latency, 6), bucket=list(bucket_hw),
+                       ok=True, trace_id=req.trace_id,
+                       queue_wait_s=round(queue_wait, 6),
+                       assembly_s=round(max(t_ready - t_asm, 0.0), 6),
+                       device_s=round(execute_s, 6))
+        # every completed batch feeds the stream ladder's drain pricing
+        self.streams.observe_batch(bucket_hw, execute_s, slots)
+        # the core's economics: predicted from the valid count alone
+        # (cover_one), realized from the launch that ran — equal unless
+        # the batcher launched a size the core would not; the service
+        # without a core pads every launch to max_batch
+        area = float(bucket_hw[0] * bucket_hw[1])
+        if self.sched is not None:
+            predicted = self.sched.predicted_cost_px(area, len(requests))
+            realized = self.sched.realized_cost_px(area, slots)
+        else:
+            predicted = area * self.max_batch
+            realized = area * slots
         with self._lock:
             self._stats["completed"] += len(requests)
             self._stats["batches"] += 1
-            self._stats["batch_slots"] += batch.image.shape[0]
+            self._stats["batch_slots"] += slots
             self._stats["batch_valid"] += len(requests)
+            self._sizes[slots] = self._sizes.get(slots, 0) + 1
+            self._cost["predicted_cost_px"] += predicted
+            self._cost["realized_cost_px"] += realized
+            self._cost["cost_mismatches"] += not costs_match(predicted,
+                                                             realized)
+        self._emit("serve.batch", bucket=list(bucket_hw), size=slots,
+                   valid=len(requests), fill=round(fill, 4),
+                   fill_pct=round(100.0 * fill, 2),
+                   padded_slots=slots - len(requests),
+                   predicted_cost_px=round(predicted, 1),
+                   realized_cost_px=round(realized, 1),
+                   execute_s=round(execute_s, 6), compiled=compiled,
+                   queue_depth=self.queue.depth())
 
     def _note_reject(self, reason: str, count: int = 1) -> None:
+        """Count a rejection whose event (if any) was emitted already —
+        stats() agrees with the RejectedErrors clients saw."""
         with self._lock:
             self._stats["rejected"] += count
+
+    def _count_reject(self, reason: str) -> None:
+        self._note_reject(reason)
+        self._emit("serve.reject", reason=reason, count=1,
+                   queue_depth=self.queue.depth())
 
 
 # -- HTTP front end -----------------------------------------------------
@@ -248,12 +488,18 @@ def make_http_handler(service: CountService):
     POST /predict   body: .npy bytes (np.save of an HWC uint8/float32
                     image); query: ?deadline_ms=&density=1&raw=1 (raw=1
                     keeps uint8 pixels and normalises on the device; needs
-                    the u8 programs warmed, cli --u8-warmup)
+                    the u8 batches warmed, cli --u8-warmup);
+                    ?stream_id=cam1&frame_seq=17 opts into a per-stream
+                    session (sequence gate, degradation ladder)
                     -> 200 {"count", "latency_ms", "bucket", "batch_fill",
-                            "trace_id", "queue_wait_ms"[, "density"]}
+                            "trace_id", "queue_wait_ms"[, "density"]};
+                       stream requests add {"degraded"[, "staleness_s"]}
                     -> 408/503 {"error", "reason"} on deadline/shedding;
-                       400 on a bad request (and on stream_id/frame_seq,
-                       not ported yet); 413 when the body exceeds the cap
+                       409 on a stale or duplicate frame_seq; 400 on a bad
+                       request; 413 when the body exceeds the cap
+                    The X-CanTpu-Trace-Id header, when given, is the
+                    request's trace_id and is echoed back.
+    POST /rollout   -> 501: a single-engine server has no rollout
     GET  /healthz   -> 200 {"ok": true}
     GET  /stats     -> 200 stats() JSON
     """
@@ -261,16 +507,22 @@ def make_http_handler(service: CountService):
     from urllib.parse import parse_qs, urlparse
 
     status_of = {REJECT_DEADLINE: 408, REJECT_QUEUE_FULL: 503,
-                 REJECT_BACKPRESSURE: 503, REJECT_SHUTDOWN: 503}
+                 REJECT_BACKPRESSURE: 503, REJECT_SHUTDOWN: 503,
+                 # a stale/duplicate stream frame is the client's ordering
+                 # problem (409), not server load (503)
+                 REJECT_STALE_FRAME: 409, REJECT_STREAM_OVERLOAD: 503}
 
     class Handler(BaseHTTPRequestHandler):
         protocol_version = "HTTP/1.1"
 
-        def _send(self, code: int, payload: dict) -> None:
+        def _send(self, code: int, payload: dict,
+                  headers: Optional[dict] = None) -> None:
             body = json.dumps(payload).encode()
             self.send_response(code)
             self.send_header("Content-Type", "application/json")
             self.send_header("Content-Length", str(len(body)))
+            for k, v in (headers or {}).items():
+                self.send_header(k, v)
             self.end_headers()
             self.wfile.write(body)
 
@@ -306,8 +558,19 @@ def make_http_handler(service: CountService):
             else:
                 self._send(404, {"error": f"no such path: {path}"})
 
+        def _do_rollout(self):
+            # the body cap first, whatever the wiring
+            if self._body_capped() is None:
+                return
+            self._send(501, {"error": "rollout is not wired on this "
+                                      "server (no rollout_loader; "
+                                      "fleet CLI serves wire it)"})
+
         def do_POST(self):
             url = urlparse(self.path)
+            if url.path == "/rollout":
+                self._do_rollout()
+                return
             if url.path != "/predict":
                 self._send(404, {"error": f"no such path: {url.path}"})
                 return
@@ -315,15 +578,19 @@ def make_http_handler(service: CountService):
             if n is None:
                 return
             try:
-                body = self.rfile.read(n)
+                arr = np.load(io.BytesIO(self.rfile.read(n)),
+                              allow_pickle=False)
                 q = parse_qs(url.query)
-                if "stream_id" in q or "frame_seq" in q:
-                    raise ValueError(STREAMS_MESSAGE)
-                arr = np.load(io.BytesIO(body), allow_pickle=False)
                 deadline_ms = (float(q["deadline_ms"][0])
                                if "deadline_ms" in q else None)
                 want_density = q.get("density", ["0"])[0] not in ("0", "")
                 raw = q.get("raw", ["0"])[0] not in ("0", "")
+                stream_id = q.get("stream_id", [None])[0] or None
+                frame_seq = (int(q["frame_seq"][0])
+                             if "frame_seq" in q else None)
+                trace_in = self.headers.get("X-CanTpu-Trace-Id") or None
+                if frame_seq is not None and stream_id is None:
+                    raise ValueError("frame_seq needs a stream_id")
                 if raw and arr.dtype != np.uint8:
                     raise ValueError("raw=1 needs uint8 pixels")
                 if raw and np.dtype(np.uint8) not in service.warmed_dtypes:
@@ -337,7 +604,9 @@ def make_http_handler(service: CountService):
                 return
             try:
                 res = service.predict(image, deadline_ms=deadline_ms,
-                                      want_density=want_density)
+                                      want_density=want_density,
+                                      stream_id=stream_id,
+                                      frame_seq=frame_seq, trace_id=trace_in)
             except ValueError as e:  # submit-side validation: client error
                 self._send(400, {"error": f"bad request: {e}"})
                 return
@@ -351,9 +620,16 @@ def make_http_handler(service: CountService):
                        "batch_fill": res.batch_fill,
                        "trace_id": res.trace_id,
                        "queue_wait_ms": round(res.queue_wait_s * 1e3, 3)}
+            if stream_id is not None:
+                # stream answers are labelled: a fresh inference or the
+                # session's EWMA
+                payload["degraded"] = bool(res.degraded)
+                if res.staleness_s is not None:
+                    payload["staleness_s"] = round(res.staleness_s, 6)
             if res.density is not None:
                 payload["density"] = res.density[..., 0].tolist()
-            self._send(200, payload)
+            self._send(200, payload,
+                       headers={"X-CanTpu-Trace-Id": res.trace_id})
 
     return Handler
 

@@ -19,7 +19,9 @@ Two other sources are converted from the JAX package's layouts:
   structure, BN variant included) and its ``batch_stats`` as numpy arrays
   — HWIO -> OIHW, (Cin, Cout) -> (Cout, Cin, 1, 1), ``bn.scale``/``bn.bias``
   -> ``weight``/``bias``, ``mean``/``var`` -> ``running_mean``/
-  ``running_var``.  It is the weights carry-over of every parity test.
+  ``running_var``.  It is the weights carry-over of every parity test;
+  ``int8_state_dict_from_jax`` carries JAX's int8 serving tree over the
+  same way (``q`` transposed, ``scale`` kept).
 """
 
 from __future__ import annotations
@@ -104,24 +106,18 @@ def load_torch_checkpoint(path: str) -> Dict[str, torch.Tensor]:
     return check_state_dict(obj)
 
 
-def state_dict_from_jax_params(params: Mapping, batch_stats: Optional[Mapping] = None
-                               ) -> Dict[str, torch.Tensor]:
-    """The JAX package's params tree (numpy leaves; HWIO conv kernels,
-    (Cin, Cout) context matrices; a ``bn`` entry per conv in the BN model)
-    and, for the BN model, its ``batch_stats`` tree (``init_batch_stats``'s
-    structure; None = torch's defaults, mean 0 / var 1) -> the port's
-    validated state dict."""
-
-    def oihw(w):  # HWIO -> OIHW
-        return np.transpose(np.asarray(w, np.float32), (3, 2, 0, 1))
-
+def _flat_from_jax(params: Mapping, batch_stats: Optional[Mapping],
+                   kernel, matrix) -> dict:
+    """The JAX params tree -> reference-layout names, the conv kernels
+    (HWIO) through ``kernel`` and the context matrices ((Cin, Cout))
+    through ``matrix``; every other leaf as it is."""
     bn = "bn" in params["frontend"][0]
     sd = {}
     stacks = (("frontend", FRONTEND_BN_SEQ_IDX if bn else FRONTEND_SEQ_IDX),
               ("backend", BACKEND_BN_SEQ_IDX if bn else BACKEND_SEQ_IDX))
     for group, seq in stacks:
         for i, (k, p) in enumerate(zip(seq, params[group])):
-            sd[f"{group}.{k}.weight"] = oihw(p["w"])
+            sd[f"{group}.{k}.weight"] = kernel(p["w"])
             sd[f"{group}.{k}.bias"] = p["b"]
             if bn:
                 c = np.asarray(p["b"]).shape[0]
@@ -133,14 +129,77 @@ def state_dict_from_jax_params(params: Mapping, batch_stats: Optional[Mapping] =
                 sd[f"{group}.{k + 1}.running_mean"] = st["mean"]
                 sd[f"{group}.{k + 1}.running_var"] = st["var"]
                 sd[f"{group}.{k + 1}.num_batches_tracked"] = np.int64(0)
-    sd["output_layer.weight"] = oihw(params["output"]["w"])
+    sd["output_layer.weight"] = kernel(params["output"]["w"])
     sd["output_layer.bias"] = params["output"]["b"]
     for s in CONTEXT_SCALES:
         cp = params["context"][f"s{s}"]
-        # (Cin, Cout) matmul matrix -> (Cout, Cin, 1, 1) conv weight
-        sd[f"conv{s}_1.weight"] = np.asarray(cp["ave"], np.float32).T[:, :, None, None]
-        sd[f"conv{s}_2.weight"] = np.asarray(cp["weight"], np.float32).T[:, :, None, None]
-    return check_state_dict(sd)
+        sd[f"conv{s}_1.weight"] = matrix(cp["ave"])
+        sd[f"conv{s}_2.weight"] = matrix(cp["weight"])
+    return sd
+
+
+def _oihw(w) -> np.ndarray:  # HWIO -> OIHW
+    return np.transpose(np.asarray(w), (3, 2, 0, 1))
+
+
+def _conv_of_matrix(m) -> np.ndarray:  # (Cin, Cout) -> (Cout, Cin, 1, 1)
+    return np.asarray(m).T[:, :, None, None]
+
+
+def state_dict_from_jax_params(params: Mapping, batch_stats: Optional[Mapping] = None
+                               ) -> Dict[str, torch.Tensor]:
+    """The JAX package's params tree (numpy leaves; HWIO conv kernels,
+    (Cin, Cout) context matrices; a ``bn`` entry per conv in the BN model)
+    and, for the BN model, its ``batch_stats`` tree (``init_batch_stats``'s
+    structure; None = torch's defaults, mean 0 / var 1) -> the port's
+    validated state dict."""
+    return check_state_dict(_flat_from_jax(
+        params, batch_stats,
+        lambda w: _oihw(np.asarray(w, np.float32)),
+        lambda m: _conv_of_matrix(np.asarray(m, np.float32))))
+
+
+def int8_state_dict_from_jax(qparams: Mapping,
+                             batch_stats: Optional[Mapping] = None) -> dict:
+    """The JAX package's int8 storage tree (``can_tpu.serve.quant.
+    quantize_tree(params, "int8")`` as numpy; quantised leaves ``{"q":
+    int8 (..., Cout), "scale": f32 (Cout,)}``) -> the port's int8 storage
+    (``serve/quant.py``): each ``q`` transposed to OIHW (a context
+    matrix's to (Cout, Cin, 1, 1)), ``scale`` kept, every other leaf as
+    the f32 converter makes it.  Names and shapes are checked against the
+    reference layout."""
+    def leaf(convert):
+        def go(x):
+            if isinstance(x, Mapping) and set(x) == {"q", "scale"}:
+                return {"q": torch.from_numpy(np.ascontiguousarray(
+                            convert(np.asarray(x["q"], np.int8)))),
+                        "scale": torch.from_numpy(
+                            np.array(x["scale"], np.float32))}
+            return convert(np.asarray(x, np.float32))
+        return go
+
+    flat = _flat_from_jax(qparams, batch_stats, leaf(_oihw),
+                          leaf(_conv_of_matrix))
+    spec = reference_param_shapes(batch_norm="bn" in qparams["frontend"][0])
+    if set(flat) != set(spec):
+        raise ValueError(f"int8 tree does not match the reference layout: "
+                         f"missing={sorted(set(spec) - set(flat))[:6]} "
+                         f"unexpected={sorted(set(flat) - set(spec))[:6]}")
+    out = {}
+    for k, shape in spec.items():
+        v = flat[k]
+        if isinstance(v, dict):
+            if tuple(v["q"].shape) != shape or v["scale"].shape != (shape[0],):
+                raise ValueError(f"{k}: q {tuple(v['q'].shape)} / scale "
+                                 f"{tuple(v['scale'].shape)}, want {shape}")
+            out[k] = v
+            continue
+        t = (_to_i64(v) if k.endswith(".num_batches_tracked")
+             else _to_f32(v))
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{k}: shape {tuple(t.shape)}, want {shape}")
+        out[k] = t
+    return out
 
 
 def load_params_npz(path: str) -> Dict[str, torch.Tensor]:

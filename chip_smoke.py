@@ -36,17 +36,36 @@ Phases (any failure exits non-zero; nothing is printed as a result then):
 3. serving  — a reference-layout .pth of seeded He-scaled normal weights
               (``random_state_dict(he=True)``: gates that vary, counts of
               order one and up) is served by the port's CLI path
-              (``cli.serve.build_service``, default ladder, --max-batch 8,
-              --u8-warmup) over HTTP on an ephemeral port in f32 and bf16:
-              one request per ladder cell (non-/8 sizes, u8 and
+              (``cli.serve.build_service`` at its defaults: the priced
+              sub-batch menu and flush; default ladder, --max-batch 8,
+              --u8-warmup) over HTTP on an ephemeral port in f32, bf16 and
+              int8: one request per ladder cell (non-/8 sizes, u8 and
               host-normalised bodies, one asking for the density map),
               then a burst of 32 requests at 768x1024 from a separate
-              client process.
+              client process.  Warmup runs buckets x menu x dtypes
+              signatures and traffic adds none.
               Every answer must be finite and match the same engine run
               with the plain-version seam, and that engine's counts must
               move by many tolerances when the gate matrices are zeroed
-              (so the check sees the kernel's products); the kernel's
-              launch counter must equal the batches the two services ran;
+              (so the check sees the kernel's products).  int8: the weights
+              stay int8 on the card (the memory an int8 engine adds is at
+              most 1.05 x its int8 parameter bytes, an f32 engine's at
+              least 3 x), its counts are graded against f32's on the
+              parity ladder, and the per-launch dequantisation is timed.
+              Then one f32 service at one bucket: ``[serve] sched`` (every
+              flush of 1..8 requests launches the core's parts, each of
+              ``cover_one(valid)`` slots, predicted cost == realized; the
+              burst's p50/p99 and fill under the priced flush against the
+              timer and against the service without the core, bf16,
+              reported); ``[serve] streams`` (~30 frames of one
+              stream over HTTP, a replayed frame_seq answered 409, a burst
+              on the stream faster than it drains answered partly from
+              the session's count EWMA — labelled degraded, with
+              staleness — without a launch); ``[serve] swap``
+              (``swap_params`` to a second seeded weight set: no new
+              signature, counts equal a fresh engine's, another dtype's
+              tree refused).  The context kernel's launch counter must
+              equal the batches all these services ran;
 4. training — a synthetic PNG dataset (20 train items mixed from 576x768,
               560x744 and 480x640, 8 test items) is trained by the port's
               CLI path (``cli.train.train``: --syncBN --bn-impl kernel
@@ -184,7 +203,18 @@ BURST = 32
 # and the output to bf16 — the bounds of tests/test_pallas_context.py
 TOL = {"f32": (1e-5, 1e-5), "bf16": (2e-2, 1e-2)}  # (rtol, atol)
 # served count vs the plain-version seam, relative to the count
-COUNT_RTOL = {"f32": 1e-4, "bf16": 2e-2}
+COUNT_RTOL = {"f32": 1e-4, "bf16": 2e-2, "int8": 1e-4}
+# serving dtypes driven end to end, and the image dtypes each warms
+SERVE_DTYPES = ("f32", "bf16", "int8")
+# int8 residency: the memory an int8 engine adds against its parameter
+# bytes (allocator rounding of ~60 small tensors fits in the 5%), and the
+# least an f32 engine must add against the same figure
+INT8_RESIDENT_MAX, F32_RESIDENT_MIN = 1.05, 3.0
+# the one-bucket f32 service of [serve] sched / streams / swap
+SLICE8_BUCKET = (384, 512)
+STREAM_FRAMES, STREAM_BURST = 30, 24
+# swap: served counts against a fresh engine on the new weights
+SWAP_RTOL = 1e-6
 # the gate products must move the served counts by more than this many
 # tolerances (median over requests), or the parity check could not see them
 GATE_EFFECT = 5
@@ -531,10 +561,33 @@ def _post(port: int, arr: np.ndarray, query: str) -> dict:
         return json.loads(r.read())
 
 
+def burst(port: int, path: Path) -> dict:
+    """BURST concurrent raw POSTs of one .npy body from a separate client
+    process (client work does not share the server's GIL); fails unless
+    every one is answered."""
+    proc = subprocess.run(
+        [sys.executable, "-c", BURST_CLIENT, str(port), str(BURST), str(path)],
+        capture_output=True, text=True, timeout=900)
+    if proc.returncode != 0:
+        fail(f"burst client failed: {proc.stderr[-2000:]}")
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    if out["errors"] or len(out["lat"]) != BURST:
+        fail(f"burst: {len(out['lat'])}/{BURST} answered, errors "
+             f"{out['errors'][:3]}")
+    lat = sorted(out["lat"])
+    out["p50_ms"] = statistics.median(lat) * 1e3
+    out["p99_ms"] = float(np.percentile(lat, 99)) * 1e3
+    return out
+
+
+def expected_signatures(service, buckets: int, dtypes: int) -> int:
+    return buckets * len(service.stats()["sched"]["menu"]) * dtypes
+
+
 def serve_one(pth: Path, serve_dtype: str) -> dict:
-    """Build the CLI service and serve HTTP traffic; returns the service
-    (still holding its engine), the requests sent with their counts, and
-    the batches run."""
+    """Build the CLI service at its defaults and serve HTTP traffic;
+    returns the service (still holding its engine), the requests sent
+    with their counts, and the batches run."""
     from can_tpu_torch.cli import serve as cli
     from can_tpu_torch.serve import serve_http
 
@@ -543,6 +596,11 @@ def serve_one(pth: Path, serve_dtype: str) -> dict:
                            "--port", "0", "--deadline-ms", "120000"])
     service = cli.build_service(args)
     warm_batches = service.engine.compile_count
+    cells = [(hb, wb) for hb in LADDER[0] for wb in LADDER[1]]
+    want = expected_signatures(service, len(cells), 2)
+    if warm_batches != want:
+        fail(f"{serve_dtype}: warmup ran {warm_batches} signatures, want "
+             f"buckets x menu x dtypes = {want}")
     rng = np.random.default_rng(SEED + 1)
     sent = []
     with service:
@@ -553,7 +611,6 @@ def serve_one(pth: Path, serve_dtype: str) -> dict:
         try:
             # one request per ladder cell, just under the cell's bounds and
             # off the /8 grid; odd cells ship raw u8 bytes (device normalise)
-            cells = [(hb, wb) for hb in LADDER[0] for wb in LADDER[1]]
             for i, (hb, wb) in enumerate(cells):
                 img = rng.integers(0, 256, (hb - 5, wb - 3, 3), dtype=np.uint8)
                 raw = i % 2 == 1
@@ -573,36 +630,33 @@ def serve_one(pth: Path, serve_dtype: str) -> dict:
                                               atol=1e-30):
                         fail(f"density map {d.shape} inconsistent with count")
                 sent.append((img, raw, res["count"]))
-            # burst: BURST concurrent clients at the largest bucket, from a
-            # separate process so client work does not share the server's GIL
+            # burst: BURST concurrent clients at the largest bucket
             body = pth.parent / "burst_768x1024.npy"
             np.save(body, rng.integers(0, 256, (768, 1024, 3), dtype=np.uint8))
-            proc = subprocess.run(
-                [sys.executable, "-c", BURST_CLIENT, str(port), str(BURST),
-                 str(body)], capture_output=True, text=True, timeout=900)
-            if proc.returncode != 0:
-                fail(f"burst client failed: {proc.stderr[-2000:]}")
-            burst = json.loads(proc.stdout.strip().splitlines()[-1])
-            lat, wall = burst["lat"], burst["wall"]
-            if burst["errors"] or len(lat) != BURST:
-                fail(f"burst: {len(lat)}/{BURST} answered, errors "
-                     f"{burst['errors'][:3]}")
+            b = burst(port, body)
         finally:
             httpd.shutdown()
             httpd.server_close()
     stats = service.stats()
     if stats["rejected"]:
         fail(f"{serve_dtype}: {stats['rejected']} requests rejected")
-    p50 = statistics.median(lat) * 1e3
-    in_server = statistics.median(x[0] for x in burst["server"])
-    queued = statistics.median(x[1] for x in burst["server"])
+    if stats["compile_count"] != warm_batches:
+        fail(f"{serve_dtype}: traffic ran {stats['compile_count'] - warm_batches}"
+             f" new signatures after warmup")
+    if stats["sched"]["cost_mismatches"]:
+        fail(f"{serve_dtype}: {stats['sched']['cost_mismatches']} batches "
+             f"launched another size than the core predicted")
+    in_server = statistics.median(x[0] for x in b["server"])
+    queued = statistics.median(x[1] for x in b["server"])
     log(f"[serve] {serve_dtype}: {len(sent)} requests over {len(cells)} ladder "
-        f"cells ok; burst {BURST} x 768x1024: p50 latency {p50:.1f} ms, "
-        f"{BURST / wall:.2f} images/s ({stats['batches']} batches served, "
-        f"{warm_batches} warmup)")
+        f"cells ok; burst {BURST} x 768x1024: p50 latency {b['p50_ms']:.1f} ms, "
+        f"{BURST / b['wall']:.2f} images/s ({stats['batches']} batches served, "
+        f"{warm_batches} warmup = {len(cells)} buckets x menu "
+        f"{tuple(stats['sched']['menu'])} x 2 image dtypes; launches by size "
+        f"{stats['sched']['launches_by_size']})")
     # client latency = before submit (upload, body parse) + queue wait +
     # batch (assembly, predict_batch, resolve) + response; medians
-    log(f"[serve] {serve_dtype} burst p50 split: {p50 - in_server:.1f} ms "
+    log(f"[serve] {serve_dtype} burst p50 split: {b['p50_ms'] - in_server:.1f} ms "
         f"before submit and in the response, {queued:.1f} ms queued, "
         f"{in_server - queued:.1f} ms in its batch")
     return {"service": service, "sent": sent,
@@ -632,8 +686,7 @@ def breakdown(run: dict, serve_dtype: str, kernel_ms: float) -> None:
     with torch.inference_mode():
         x = normalize_on_device(torch.from_numpy(batch.image).cuda(),
                                 torch.from_numpy(batch.pixel_mask).cuda())
-        fwd = time_ms(lambda: engine.model(x, compute_dtype=engine.compute_dtype),
-                      reps=5)
+        fwd = time_ms(lambda: engine.forward(x), reps=5)
     log(f"[breakdown] {serve_dtype} batch 8x768x1024: predict_batch "
         f"{wall:.1f} ms = forward {fwd:.1f} ms (context kernel {kernel_ms:.1f} "
         f"ms, {100 * kernel_ms / fwd:.1f}%) + H2D/fetch/host "
@@ -692,6 +745,375 @@ def check_parity(run: dict, serve_dtype: str) -> None:
         f"without the gate products they would move by {min(effects):.2e} to "
         f"{max(effects):.2e} (median {effect:.2e})")
     engine.release_buffers()
+
+
+def _post_status(port: int, arr: np.ndarray, query: str):
+    """POST one .npy body; returns (HTTP status, JSON body), errors too.
+    http.client with TCP_NODELAY: urllib.request adds ~40 ms a request."""
+    import http.client
+    import io
+    import socket
+
+    buf = io.BytesIO()
+    np.save(buf, arr)
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+    try:
+        conn.connect()
+        conn.sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+        conn.request("POST", f"/predict?{query}", body=buf.getvalue())
+        r = conn.getresponse()
+        return r.status, json.loads(r.read())
+    finally:
+        conn.close()
+
+
+class Events:
+    """The services' telemetry seam: records ``emit(kind, **payload)``."""
+
+    def __init__(self):
+        self.events = []
+
+    def emit(self, kind, **payload):
+        self.events.append((kind, payload))
+
+    def of(self, kind, since: int = 0) -> list:
+        return [p for k, p in self.events[since:] if k == kind]
+
+
+def check_residency(pth: Path) -> None:
+    """int8 stays int8 on the card: the device memory an int8 engine adds
+    is its int8 parameter bytes (within allocator rounding), an f32
+    engine's about four times that."""
+    import torch
+
+    from can_tpu_torch.serve import ServeEngine, param_bytes
+    from can_tpu_torch.utils.torch_import import load_torch_checkpoint
+
+    def requested() -> int:
+        # the bytes tensors asked for, before the allocator's block sizes
+        return torch.cuda.memory_stats().get("requested_bytes.all.current", 0)
+
+    sd = load_torch_checkpoint(str(pth))
+    grew = {}
+    for dt in ("int8", "f32", "bf16"):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()  # fresh segments: the same blocks each run
+        m0, r0 = torch.cuda.memory_allocated(), requested()
+        engine = ServeEngine(sd, device="cuda", serve_dtype=dt)
+        torch.cuda.synchronize()
+        grew[dt] = (torch.cuda.memory_allocated() - m0, requested() - r0,
+                    param_bytes(engine.params))
+        engine.release_buffers()
+        del engine
+    d8, req8, pb8 = grew["int8"]
+    if d8 > INT8_RESIDENT_MAX * pb8 or req8 > INT8_RESIDENT_MAX * pb8:
+        fail(f"int8 engine added {d8} bytes of device memory ({req8} "
+             f"requested) for {pb8} parameter bytes (> {INT8_RESIDENT_MAX} "
+             f"x): not int8-resident")
+    if grew["f32"][0] < F32_RESIDENT_MIN * pb8:
+        fail(f"f32 engine added only {grew['f32'][0]} bytes, under "
+             f"{F32_RESIDENT_MIN} x the int8 parameter bytes {pb8}")
+    log(f"[serve] int8 residency: building the engine adds {d8} bytes of "
+        f"device memory (memory_allocated; {req8} requested by its tensors) "
+        f"for {pb8} int8 parameter bytes ({d8 / pb8:.4f} x / "
+        f"{req8 / pb8:.4f} x, limit {INT8_RESIDENT_MAX}); f32 adds "
+        f"{grew['f32'][0]} ({grew['f32'][1]} requested; "
+        f"{grew['f32'][0] / pb8:.3f} x int8's parameter bytes, at least "
+        f"{F32_RESIDENT_MIN}), bf16 {grew['bf16'][0]} ({grew['bf16'][1]})")
+
+
+def int8_report(runs: dict) -> None:
+    """int8's served counts against f32's on the parity ladder (the same
+    requests), and the per-launch dequantisation on the card."""
+    import torch
+
+    from can_tpu_torch.serve.quant import dequantize_tree, grade_parity
+
+    c32 = [c for _, _, c in runs["f32"]["sent"]]
+    c8 = [c for _, _, c in runs["int8"]["sent"]]
+    deltas = [abs(a - b) / max(abs(b), 1.0) for a, b in zip(c8, c32)]
+    worst = max(deltas)
+    grade = grade_parity(worst)
+    if grade == "fail":
+        fail(f"int8 counts move {worst:.3e} (relative) from f32's: off the "
+             f"parity ladder")
+    engine = runs["int8"]["service"].engine
+    with torch.inference_mode():
+        deq_ms = time_ms(lambda: dequantize_tree(engine.params, "int8"))
+    # the bytes one dequantisation must move: int8 + scales in, f32 out
+    q = [v for v in engine.params.values() if isinstance(v, dict)]
+    moved = sum(v["q"].numel() * 5 + v["scale"].numel() * 4 for v in q)
+    log(f"[serve] int8 parity ladder vs f32 over {len(deltas)} requests: worst "
+        f"rel count delta {worst:.6f}, mean {statistics.mean(deltas):.6f} -> "
+        f"grade '{grade}' (serve <= 2e-2, loose <= 1e-1; gated: not 'fail')")
+    log(f"[serve] int8 dequantisation per launch: {deq_ms:.4f} ms for "
+        f"{len(q)} weights ({moved / 1e6:.2f} MB moved: {moved / deq_ms / 1e6:.1f} "
+        f"GB/s)")
+
+
+def slice8_service(pth: Path, telemetry=None, bucket=SLICE8_BUCKET,
+                   extra=()):
+    from can_tpu_torch.cli import serve as cli
+
+    args = cli.parse_args(["--torch-pth", str(pth), "--max-batch",
+                           str(MAX_BATCH), "--bucket-shapes",
+                           f"{bucket[0]}x{bucket[1]}", "--port", "0",
+                           "--deadline-ms", "120000", *extra])
+    return cli.build_service(args, telemetry=telemetry)
+
+
+def serve_sched(pth: Path) -> int:
+    """Every flush of n = 1..MAX_BATCH requests at one bucket launches the
+    core's parts, each of ``cover_one(valid)`` slots, with predicted ==
+    realized cost; warmup runs bucket x menu x dtype signatures and
+    traffic adds none.  Returns the batches run."""
+    from can_tpu_torch.sched import costs_match
+    from can_tpu_torch.serve import prepare_image
+
+    tel = Events()
+    svc = slice8_service(pth, tel)
+    warm = svc.engine.compile_count
+    if warm != expected_signatures(svc, 1, 1):
+        fail(f"[serve] sched: warmup ran {warm} signatures, want "
+             f"{expected_signatures(svc, 1, 1)}")
+    sched = svc.sched
+    h, w = SLICE8_BUCKET
+    rng = np.random.default_rng(SEED + 3)
+    imgs = [prepare_image(rng.integers(0, 256, (h, w, 3), dtype=np.uint8))
+            for _ in range(MAX_BATCH)]
+    rows = []
+    for n in range(1, MAX_BATCH + 1):
+        since = len(tel.events)
+        tickets = [svc.submit(imgs[i]) for i in range(n)]
+        svc.batcher.intake()  # a group of MAX_BATCH flushes here
+        svc.batcher.flush_all()
+        for t in tickets:
+            if not np.isfinite(t.result(timeout=300).count):
+                fail("[serve] sched: non-finite count")
+        batches = tel.of("serve.batch", since)
+        sizes = tuple(b["size"] for b in batches)
+        if sizes != sched.parts_for(n):
+            fail(f"[serve] sched: a flush of {n} launched {sizes}, the core "
+                 f"covers it with {sched.parts_for(n)}")
+        for b in batches:
+            if b["size"] != sched.cover_one(b["valid"]) or not costs_match(
+                    b["predicted_cost_px"], b["realized_cost_px"]):
+                fail(f"[serve] sched: batch {b} is not the core's prediction")
+        rows.append(f"{n}->{'+'.join(map(str, sizes))}")
+    st = svc.stats()
+    if st["compile_count"] != warm or st["sched"]["cost_mismatches"]:
+        fail(f"[serve] sched: {st['compile_count'] - warm} new signatures, "
+             f"{st['sched']['cost_mismatches']} cost mismatches")
+    svc.close()
+    svc.engine.release_buffers()
+    log(f"[serve] sched: menu {sched.menu} at {h}x{w}; flushes of n requests "
+        f"launched {', '.join(rows)}; every batch cover_one(valid) slots and "
+        f"predicted == realized cost ({st['sched']['predicted_cost_px_per_batch']}"
+        f" px per batch); {warm} signatures = 1 bucket x {len(sched.menu)} "
+        f"sizes x 1 dtype, unchanged by traffic; mean fill "
+        f"{st['mean_batch_fill']}")
+    return warm + st["batches"]
+
+
+def burst_policies(pth: Path) -> int:
+    """The 32-request burst at 768x1024 in bf16 (where the device time is
+    smallest, so the flush policy shows most) under the priced flush, the
+    timer (both with the menu) and the service without the core
+    (``--menu-budget 1 --flush-policy timer``, the path before the core),
+    in turns (A B C C B A in one process); reported and not gated: the
+    burst is host-bound.  Returns the batches run."""
+    from can_tpu_torch.serve import serve_http
+
+    body = pth.parent / "burst_768x1024.npy"
+    arms = {"priced": ("--flush-policy", "priced"),
+            "timer": ("--flush-policy", "timer"),
+            "no core": ("--menu-budget", "1", "--flush-policy", "timer")}
+    rows, batches = {k: [] for k in arms}, 0
+    for arm in list(arms) + list(reversed(arms)):
+        svc = slice8_service(pth, None, (768, 1024),
+                             ("--u8-warmup", "--serve-dtype", "bf16")
+                             + arms[arm])
+        with svc:
+            httpd = serve_http(svc, host="127.0.0.1", port=0)
+            threading.Thread(target=httpd.serve_forever, daemon=True).start()
+            try:
+                b = burst(httpd.server_address[1], body)
+            finally:
+                httpd.shutdown()
+                httpd.server_close()
+        st = svc.stats()
+        batches += svc.engine.compile_count + st["batches"]
+        svc.engine.release_buffers()
+        rows[arm].append(f"p50 {b['p50_ms']:.1f} / p99 {b['p99_ms']:.1f} ms, "
+                         f"{BURST / b['wall']:.2f} images/s, fill "
+                         f"{st['mean_batch_fill']}, launches "
+                         f"{st['sched']['launches_by_size']}")
+    for arm, r in rows.items():
+        log(f"[serve] sched burst {BURST} x 768x1024 bf16, {arm} "
+            f"({' '.join(arms[arm])}): " + "; ".join(r))
+    return batches
+
+
+def serve_streams(pth: Path) -> int:
+    """One camera's stream over HTTP: STREAM_FRAMES frames paced at 30/s
+    (or slower, within the stream's capacity; all inferred), a replayed frame_seq (409), then a burst of
+    STREAM_BURST frames submitted back to back, faster than the stream
+    drains: the ladder answers some from the session's count EWMA
+    (labelled degraded, with staleness) without a launch.  Returns the
+    batches run."""
+    from can_tpu_torch.serve import serve_http
+    from can_tpu_torch.serve.streams import COUNT_EWMA_ALPHA
+
+    tel = Events()
+    svc = slice8_service(pth, tel)
+    warm = svc.engine.compile_count
+    h, w = SLICE8_BUCKET
+    rng = np.random.default_rng(SEED + 4)
+    frames = [rng.integers(0, 256, (h - 5, w - 3, 3), dtype=np.uint8)
+              for _ in range(4)]
+    ewma = None
+
+    def fold(count):
+        return count if ewma is None else ((1 - COUNT_EWMA_ALPHA) * ewma
+                                           + COUNT_EWMA_ALPHA * count)
+
+    with svc:
+        httpd = serve_http(svc, host="127.0.0.1", port=0)
+        port = httpd.server_address[1]
+        threading.Thread(target=httpd.serve_forever, daemon=True).start()
+        try:
+            pace, took = 1 / 30, []
+            for i in range(STREAM_FRAMES):
+                t0 = time.perf_counter()
+                code, res = _post_status(port, frames[i % 4],
+                                         f"stream_id=cam0&frame_seq={i + 1}")
+                if code != 200 or res["degraded"] or not np.isfinite(
+                        res["count"]):
+                    fail(f"[serve] streams: frame {i + 1} answered {code} {res}")
+                ewma = fold(res["count"])
+                # a camera within capacity: 30 frames/s, or a third of the
+                # rate the median round trip allows where that is slower
+                took.append(time.perf_counter() - t0)
+                pace = max(1 / 30, 3 * statistics.median(took))
+                time.sleep(max(0.0, pace - took[-1]))
+            sess = svc.streams.get("cam0")
+            if sess.count_ewma != ewma or sess.served != STREAM_FRAMES:
+                fail(f"[serve] streams: session EWMA {sess.count_ewma!r} "
+                     f"served {sess.served}, want {ewma!r} / {STREAM_FRAMES}")
+            code, res = _post_status(port, frames[0],
+                                     f"stream_id=cam0&frame_seq={STREAM_FRAMES}")
+            if code != 409 or res.get("reason") != "stale_frame":
+                fail(f"[serve] streams: a replayed frame_seq got {code} {res}")
+            # the burst, in order from one thread (a camera's frames)
+            from can_tpu_torch.serve import prepare_image
+
+            x = prepare_image(frames[1])
+            seq0 = STREAM_FRAMES + 1
+            tickets = [svc.submit(x, stream_id="cam0", frame_seq=seq0 + k)
+                       for k in range(STREAM_BURST)]
+            results = [t.result(timeout=300) for t in tickets]
+            code, after = _post_status(
+                port, frames[2], f"stream_id=cam0&frame_seq={seq0 + STREAM_BURST}")
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+    st = svc.stats()
+    fresh = [r for r in results if not r.degraded]
+    degraded = [r for r in results if r.degraded]
+    # completions fold in frame order: every EWMA the session took
+    seen = {ewma}
+    for r in fresh:
+        ewma = fold(r.count)
+        seen.add(ewma)
+    if not degraded:
+        fail(f"[serve] streams: a burst of {STREAM_BURST} frames was all "
+             f"inferred: the ladder never skipped")
+    for r in degraded:
+        if r.count not in seen or r.staleness_s is None or r.staleness_s < 0:
+            fail(f"[serve] streams: degraded answer {r.count!r} (staleness "
+                 f"{r.staleness_s}) is not one of the session's EWMAs")
+    if code != 200 or after.get("degraded") is not True \
+            or "staleness_s" not in after:
+        fail(f"[serve] streams: the frame after the burst answered {code} "
+             f"{after} (the skip rung holds for cooldown_s)")
+    valid = sum(b["valid"] for b in tel.of("serve.batch"))
+    if valid != STREAM_FRAMES + len(fresh) or st["degraded"] != len(degraded) + 1:
+        fail(f"[serve] streams: {valid} frames launched for "
+             f"{STREAM_FRAMES + len(fresh)} inferred; {st['degraded']} degraded")
+    rungs = [(p["from_rung"], p["rung"]) for p in tel.of("stream.degrade")]
+    svc.engine.release_buffers()
+    log(f"[serve] streams: {STREAM_FRAMES} frames of cam0 at {1 / pace:.1f}/s "
+        f"(round trip median {statistics.median(took) * 1e3:.1f} ms, max "
+        f"{max(took) * 1e3:.1f}) all inferred "
+        f"(session EWMA {sess.count_ewma:.6g} equal to the client's fold), "
+        f"replayed frame_seq -> 409 stale_frame; burst of {STREAM_BURST}: "
+        f"{len(fresh)} inferred, {len(degraded)} degraded (staleness "
+        f"{min(r.staleness_s for r in degraded) * 1e3:.2f}.."
+        f"{max(r.staleness_s for r in degraded) * 1e3:.2f} ms, each one of the "
+        f"session's EWMAs) with no launch, and the next frame over HTTP "
+        f"degraded: true, staleness_s {after['staleness_s']}; rung moves "
+        f"{rungs}; {st['batches']} batches for {valid} inferred frames")
+    return warm + st["batches"]
+
+
+def serve_swap(pth: Path) -> dict:
+    """``swap_params`` to a second seeded weight set on a warmed service:
+    no new signature, the served counts move.  Returns what
+    ``check_swap`` compares (after the launch count is read)."""
+    import torch
+
+    from can_tpu_torch.models import random_state_dict
+    from can_tpu_torch.serve import prepare_image
+
+    svc = slice8_service(pth)
+    warm = svc.engine.compile_count
+    h, w = SLICE8_BUCKET
+    rng = np.random.default_rng(SEED + 5)
+    imgs = [prepare_image(rng.integers(0, 256, (h, w, 3), dtype=np.uint8))
+            for _ in range(3)]
+    sd2 = {k: torch.from_numpy(v)
+           for k, v in random_state_dict(SEED + 7, he=True).items()}
+    with svc:
+        before = [svc.predict(x, timeout=300).count for x in imgs]
+        svc.engine.swap_params(sd2)
+        after = [svc.predict(x, timeout=300).count for x in imgs]
+    st = svc.stats()
+    if st["compile_count"] != warm:
+        fail(f"[serve] swap: {st['compile_count'] - warm} new signatures")
+    return {"service": svc, "imgs": imgs, "before": before, "after": after,
+            "sd2": sd2, "batches": warm + st["batches"]}
+
+
+def check_swap(run: dict) -> None:
+    from can_tpu_torch.data import pad_batch
+    from can_tpu_torch.serve import ServeEngine, quantize_tree
+
+    svc = run["service"]
+    fresh = ServeEngine(run["sd2"], device="cuda")
+    h, w = SLICE8_BUCKET
+    worst = 0.0
+    for x, got in zip(run["imgs"], run["after"]):
+        batch = pad_batch([(x, np.zeros((h // 8, w // 8, 1), np.float32))],
+                          (h, w), 1, [True], 8)
+        want = float(fresh.predict_batch(batch)[0][0])
+        worst = max(worst, abs(got - want) / abs(want))
+    moved = min(abs(a - b) / abs(b) for a, b in zip(run["after"], run["before"]))
+    if worst > SWAP_RTOL or moved < 1e-3:
+        fail(f"[serve] swap: counts vs a fresh engine rel {worst:.2e} (> "
+             f"{SWAP_RTOL}?), moved by {moved:.2e} from the old weights")
+    try:
+        svc.engine.swap_params(quantize_tree(run["sd2"], "bf16"),
+                               quantized=True)
+        fail("[serve] swap: a bf16 tree was swapped into the f32 engine")
+    except ValueError as e:
+        refusal = str(e)
+    fresh.release_buffers()
+    svc.engine.release_buffers()
+    log(f"[serve] swap: swap_params to seed {SEED + 7}'s weights with no new "
+        f"signature ({svc.engine.compile_count} warmed); served counts vs a "
+        f"fresh engine on them: worst rel {worst:.2e} (tolerance {SWAP_RTOL}); "
+        f"they moved by at least {moved:.2e} from the old weights; a bf16 tree "
+        f"refused: {refusal[:60]}...")
 
 
 def _bn_mask(b: int, h: int, w: int, device) -> "torch.Tensor":
@@ -2786,19 +3208,29 @@ def main(argv) -> int:
     # to 0.5 and every count to ~1e-8, where parity would prove nothing
     torch.save({k: torch.from_numpy(v) for k, v in
                 random_state_dict(SEED, he=True).items()}, pth)
+    check_residency(pth)
     cc.reset_launches()  # the serving path starts here
-    runs = {dt: serve_one(pth, dt) for dt in ("f32", "bf16")}
+    runs = {dt: serve_one(pth, dt) for dt in SERVE_DTYPES}
+    paths8 = {"sched": serve_sched(pth), "sched burst": burst_policies(pth),
+              "streams": serve_streams(pth)}
+    swap = serve_swap(pth)
     launches = cc.LAUNCHES  # ... and ends here
-    want = sum(r["batches"] for r in runs.values())
+    want = (sum(r["batches"] for r in runs.values()) + sum(paths8.values())
+            + swap["batches"])
     if launches != want:
         fail(f"context_fused launched {launches} times, but the services ran "
              f"{want} batches")
     log(f"[serve] context_fused launches during serving: {launches} "
-        f"(= batches run, warmup included)")
+        f"(= batches run, warmup included: "
+        + ", ".join(f"{dt} {r['batches']}" for dt, r in runs.items()) + ", "
+        + ", ".join(f"{k} {v}" for k, v in paths8.items())
+        + f", swap {swap['batches']})")
+    check_swap(swap)
+    int8_report(runs)
     for dt, run in runs.items():
-        breakdown(run, dt, row["ms"] if dt == "f32" else row["bf16_ms"])
+        breakdown(run, dt, row["bf16_ms"] if dt == "bf16" else row["ms"])
         check_parity(run, dt)  # ends by releasing the engine's weights
-    del runs
+    del runs, swap
 
     # each phase resets and reads the counts around each path it drives
     paths = {"determinism": phase_determinism(work),

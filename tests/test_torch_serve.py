@@ -156,8 +156,14 @@ def test_quant_modes():
     assert quantize_tree(sd, "f32")["w"].dtype == torch.float32
     q = quantize_tree(sd, "bf16")
     assert q["w"].dtype == torch.bfloat16 and q["n"].dtype == torch.int64
-    with pytest.raises(NotImplementedError, match="slice"):
-        quantize_tree(sd, "int8")
+    # int8 is a real mode: the 2-D weight becomes an int8 leaf with one
+    # f32 scale per output channel; the integer tensor stays as it is
+    q8 = quantize_tree(sd, "int8")
+    assert q8["w"]["q"].dtype == torch.int8 and q8["w"]["q"].tolist() == [
+        [127, 127], [127, 127]]
+    np.testing.assert_array_equal(q8["w"]["scale"].numpy(),
+                                  np.full(2, np.float32(1) / np.float32(127)))
+    assert q8["n"].dtype == torch.int64
     with pytest.raises(ValueError):
         quantize_tree(sd, "fp8")
 
@@ -458,7 +464,10 @@ def test_http_round_trip_cpu(tmp_path, he_params, engines):
                            "--max-wait-ms", "1", "--u8-warmup", "--port", "0",
                            "--max-body-mb", "0.5"])
     service = cli.build_service(args)
-    assert service.engine.compile_count == 4  # 2 buckets x (f32, u8)
+    menu = service.sched.menu
+    assert menu == (2, 1)  # the priced menu at --max-batch 2
+    # 2 buckets x 2 menu sizes x (f32, u8)
+    assert service.engine.compile_count == 2 * len(menu) * 2 == 8
     img = np.random.default_rng(6).integers(0, 256, (61, 90, 3), dtype=np.uint8)
     with service:
         httpd = serve_http(service, host="127.0.0.1", port=0)
@@ -480,7 +489,8 @@ def test_http_round_trip_cpu(tmp_path, he_params, engines):
                               (64, 96), 2, [True], DS)
             want = engines[1].predict_batch(batch)[0][0]
             np.testing.assert_allclose(res["count"], want, rtol=1e-3, atol=1e-4)
-            assert _post(port, img, "stream_id=cam1")[0] == 400
+            code, st = _post(port, img, "stream_id=cam1")  # a session
+            assert code == 200 and st["degraded"] is False
             assert _post(port, img.astype(np.float32), "raw=1")[0] == 400
             # over the 0.5 MiB cap: refused from the header, body unread
             conn = http.client.HTTPConnection("127.0.0.1", port, timeout=30)
@@ -492,15 +502,19 @@ def test_http_round_trip_cpu(tmp_path, he_params, engines):
             big = np.zeros((400, 400, 3), np.uint8)  # ~0.46 MiB of npy + hdr
             assert _post(port, big)[0] == 400  # exceeds the largest bucket
             code, stats = _get(port, "/stats")
-            assert code == 200 and stats["completed"] == 2
-            assert stats["compile_count"] == 4
+            assert code == 200 and stats["completed"] == 3
+            assert stats["compile_count"] == 8  # traffic added none
+            assert stats["sched"]["cost_mismatches"] == 0
         finally:
             httpd.shutdown()
             httpd.server_close()
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--serve-dtype", "int8"], "int8"),
+    # int8 serves now (test_int8_cli_serves); its one refusal is the
+    # legacy --bf16 beside it
+    pytest.param(["--serve-dtype", "int8", "--bf16"], "--bf16 is the legacy",
+                 id="argv0-int8"),
     (["--checkpoint-dir", "/nonexistent"], "checkpoint-dir is ignored"),
     (["--params-npz", "x.npz"], "OR"),
     ([], None),
@@ -514,3 +528,275 @@ def test_cli_refusals(tmp_path, argv, match):
         cli.build_service(args)
     if match is not None:
         assert match in str(e.value)
+
+
+# -- the scheduling core in the service (priced menu and flush) ----------
+class Events:
+    """A telemetry stand-in: records ``emit(kind, **payload)``."""
+
+    def __init__(self):
+        self.events = []
+
+    def emit(self, kind, **payload):
+        self.events.append((kind, payload))
+
+
+def _image(h=64, w=64, seed=0):
+    rng = np.random.default_rng(seed)
+    return prepare_image(rng.integers(0, 256, (h, w, 3), dtype=np.uint8))
+
+
+def test_menu_warmup_compile_count(engines):
+    """Warmup runs every (bucket, menu size, dtype); traffic at every flush
+    size then adds no signature."""
+    from can_tpu.sched import default_serve_menu as jax_menu
+    from can_tpu_torch.serve import CountService
+
+    eng = ServeEngine(engines[0].params, device="cpu")
+    svc = CountService(eng, max_batch=4, max_wait_ms=1.0,
+                       bucket_ladder=((64,), (64, 96)))
+    menu = svc.sched.menu
+    assert menu == jax_menu(4)
+    rep = svc.warmup([(64, 64), (64, 96)], dtypes=(np.float32, np.uint8))
+    assert rep["sizes"] == len(menu)
+    assert eng.compile_count == rep["compiles"] == 2 * len(menu) * 2
+    for n in range(1, 5):  # one flush of each size, by hand
+        for i in range(n):
+            svc.submit(_image(seed=i))
+        svc.batcher.intake()
+        svc.batcher.flush_all()
+    assert eng.compile_count == 2 * len(menu) * 2
+    assert not eng.last_batch_compiled
+    svc.queue.close()
+
+
+def test_predicted_equals_realized_per_batch(engines):
+    """Every launch of a flush of n requests is the core's cover: its size
+    is ``cover_one(valid)``, and predicted cost == realized cost on every
+    serve.batch record."""
+    from can_tpu_torch.sched import costs_match
+    from can_tpu_torch.serve import CountService
+
+    tel = Events()
+    svc = CountService(engines[0], max_batch=8, max_wait_ms=1.0,
+                       bucket_ladder=((64,), (64,)), telemetry=tel)
+    for n in range(1, 12):
+        tickets = [svc.submit(_image(seed=i)) for i in range(n)]
+        svc.batcher.intake()
+        svc.batcher.flush_all()
+        assert all(t.done for t in tickets)
+    batches = [p for k, p in tel.events if k == "serve.batch"]
+    assert sum(b["valid"] for b in batches) == sum(range(1, 12))
+    for b in batches:
+        assert b["size"] == svc.sched.cover_one(b["valid"]) in svc.sched.menu
+        assert costs_match(b["predicted_cost_px"], b["realized_cost_px"])
+    st = svc.stats()["sched"]
+    assert st["cost_mismatches"] == 0 and st["priced"]
+    assert st["predicted_cost_px_per_batch"] == st["realized_cost_px_per_batch"]
+    assert sum(st["launches_by_size"].values()) == len(batches)
+    assert set(st["launches_by_size"]) > {"8"}  # not every launch is full
+    svc.queue.close()
+
+
+def test_budget1_timer_is_the_service_without_the_core(engines):
+    """``menu_budget=1, flush_policy="timer"`` runs no core: every launch
+    pads to max_batch and flushes on the fixed timer — the same launches,
+    at the same times, as JAX's batcher without a core, and counts equal
+    to one max_batch-slot batch of the engine."""
+    from can_tpu.serve import BoundedRequestQueue as JQ
+    from can_tpu.serve import MicroBatcher as JB
+    from can_tpu.serve import ServeRequest as JR
+    from can_tpu_torch.serve import CountService
+
+    svc = CountService(engines[0], max_batch=4, max_wait_ms=5.0,
+                       bucket_ladder=((64,), (64,)), menu_budget=1,
+                       flush_policy="timer")
+    assert svc.sched is None and svc.batcher.sched is None
+    assert svc.stats()["sched"]["menu"] == [4]
+    assert CountService(engines[0], menu_budget=1).sched.menu == (8,)
+    assert svc.warmup([(64, 64)])["compiles"] in (0, 1)
+    img = _image(seed=9)
+    t = svc.submit(img)
+    svc.batcher.intake()
+    svc.batcher.flush_all()
+    got = t.result(timeout=5.0)
+    batch = pad_batch([(img, np.zeros((8, 8, 1), np.float32))], (64, 64), 4,
+                      [True], DS)
+    assert got.count == float(engines[0].predict_batch(batch)[0][0])
+    assert got.batch_fill == 0.25
+    svc.queue.close()
+
+    def run(batcher_cls, queue_cls, request_cls):
+        clock = FakeClock()
+        launches = []
+
+        def dispatch(bucket, batch, reqs):
+            launches.append((clock.t, batch.image.shape[0], len(reqs)))
+
+        q = queue_cls(64, clock=clock)
+        b = batcher_cls(q, dispatch, max_batch=4, max_wait_ms=5.0,
+                        clock=clock)
+        for step in range(40):
+            clock.t = round(clock.t + (0.001 if step % 7 else 0.02), 6)
+            for _ in range(step % 3):
+                q.offer(request_cls(np.zeros((64, 64, 3), np.float32),
+                                    deadline_s=None, clock=clock))
+            b.intake()
+            b.poll(clock.t)
+        b.flush_all()
+        return launches
+
+    mine = run(MicroBatcher, BoundedRequestQueue, ServeRequest)
+    assert mine == run(JB, JQ, JR)
+    assert {size for _, size, _ in mine} == {4}
+
+
+def test_swap_params_flips_weights_without_new_signatures(he_params):
+    from tests.test_torch_model import jax_params
+
+    eng = ServeEngine(state_dict_from_jax_params(he_params), device="cpu")
+    eng.warmup([(64, 64)], 4)
+    n = eng.compile_count
+    sd2 = state_dict_from_jax_params(jax_params("he", seed=1))
+    batch = _batch("f32", seed=2)
+    before = eng.predict_batch(batch)[0]
+    eng.swap_params(sd2)
+    assert eng.compile_count == n and not eng.last_batch_compiled
+    got = eng.predict_batch(batch)[0]
+    fresh = ServeEngine(sd2, device="cpu").predict_batch(batch)[0]
+    np.testing.assert_array_equal(got, fresh)
+    assert not np.allclose(got, before)
+    assert eng.compile_count == n  # the warmed shape served the new weights
+    # another dtype, or another layout, is refused and serves on unchanged
+    for bad, quantized in ((quantize_tree(sd2, "bf16"), True),
+                           ({k: v for k, v in sd2.items() if k != "conv1_1.weight"},
+                            False)):
+        with pytest.raises(ValueError, match="swap_params structure mismatch"):
+            eng.swap_params(bad, quantized=quantized)
+    np.testing.assert_array_equal(eng.predict_batch(batch)[0], got)
+
+
+def test_int8_cli_serves(tmp_path, he_params, engines):
+    """--serve-dtype int8 builds a service whose engine keeps int8 weights
+    and whose counts stay near f32's."""
+    pth = tmp_path / "ref.pth"
+    torch.save({k: torch.from_numpy(np.copy(v))
+                for k, v in export_state_dict(he_params).items()}, pth)
+    args = cli.parse_args(["--torch-pth", str(pth), "--platform", "cpu",
+                           "--bucket-shapes", "64x64", "--max-batch", "2",
+                           "--serve-dtype", "int8"])
+    svc = cli.build_service(args)
+    assert svc.engine.params["frontend.0.weight"]["q"].dtype == torch.int8
+    with svc:
+        got = svc.predict(_image(seed=4), timeout=60.0)
+    want = engines[0].predict_batch(pad_batch(
+        [(_image(seed=4), np.zeros((8, 8, 1), np.float32))], (64, 64), 1,
+        [True], DS))[0][0]
+    assert abs(got.count - want) <= 0.1 * max(abs(want), 1.0)
+
+
+JAX_CLI_CASES = [
+    ["--bf16", "--serve-dtype", "bf16"],
+    ["--replicas", "0"],
+    ["--menu-budget", "9"],
+    ["--menu-budget", "0"],
+    ["--stream-ttl-s", "0"],
+    ["--max-body-mb", "-1"],
+    ["--aot-bake", "/tmp/x"],
+    ["--aot-bundle", "/tmp/x"],
+    ["--autoscale-max", "3"],
+    ["--replicas", "2", "--autoscale-max", "2"],
+    ["--replicas", "2", "--autoscale-max", "4", "--autoscale-min", "5"],
+]
+
+
+@pytest.mark.parametrize("argv", JAX_CLI_CASES,
+                         ids=lambda a: "_".join(x.strip("-") for x in a))
+def test_cli_validation_messages_equal_jax(tmp_path, argv):
+    """The serve CLI refuses each bad flag combination with the JAX CLI's
+    own message, before any weights load."""
+    from can_tpu.cli import serve as jcli
+
+    pth = tmp_path / "a.pth"
+    pth.write_bytes(b"")
+    base = ["--torch-pth", str(pth), "--platform", "cpu"]
+    with pytest.raises(SystemExit) as want:
+        jcli.build_service(jcli.parse_args(base + argv))
+    with pytest.raises(SystemExit) as got:
+        cli.build_service(cli.parse_args(base + argv))
+    assert str(got.value) == str(want.value) and str(got.value)
+
+
+@pytest.mark.parametrize("argv", [["--replicas", "2"],
+                                  ["--replicas", "4", "--aot-bake", "/tmp/x",
+                                   "--autoscale-max", "6"]])
+def test_replicas_refused_naming_item_3b(tmp_path, argv):
+    pth = tmp_path / "a.pth"
+    pth.write_bytes(b"")
+    args = cli.parse_args(["--torch-pth", str(pth), "--platform", "cpu"]
+                          + argv)
+    with pytest.raises(SystemExit) as e:
+        cli.build_service(args)
+    assert "ROADMAP Queue 1 item 3b" in str(e.value)
+
+
+def test_cli_defaults_equal_jax():
+    """At its defaults the port's serve CLI runs the JAX CLI's policy: the
+    priced menu and flush, and every shared flag's default is JAX's."""
+    from can_tpu.cli import serve as jcli
+
+    mine = vars(cli.parse_args([]))
+    theirs = vars(jcli.parse_args([]))
+    telemetry_only = {"compile_cache", "telemetry_dir", "telemetry_heartbeat_s",
+                      "metrics_port", "metrics_host", "collector_push",
+                      "incident_dir", "slo_spec"}
+    assert set(theirs) - set(mine) == telemetry_only
+    for k in set(mine) & set(theirs):
+        assert mine[k] == theirs[k], k
+    assert mine["flush_policy"] == "priced" and mine["menu_budget"] is None
+
+
+def test_http_rollout_answers_as_jax_single_engine(engines):
+    from can_tpu_torch.serve import CountService
+
+    svc = CountService(engines[0], max_batch=2, bucket_ladder=((64,), (64,)),
+                       max_body_mb=0.001)
+    with pytest.raises(RuntimeError, match="needs a FleetEngine"):
+        svc.rollout({})
+    httpd = serve_http(svc, host="127.0.0.1", port=0)
+    port = httpd.server_address[1]
+    th = threading.Thread(target=httpd.serve_forever, daemon=True)
+    th.start()
+    try:
+        for body, code in ((b"{}", 501), (b"x" * 2048, 413)):
+            rq = urllib.request.Request(f"http://127.0.0.1:{port}/rollout",
+                                        data=body, method="POST")
+            with pytest.raises(urllib.error.HTTPError) as e:
+                urllib.request.urlopen(rq, timeout=30)
+            assert e.value.code == code
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+
+
+def test_legacy_bf16_flag_is_f32_weights_with_bf16_compute(tmp_path, he_params,
+                                                           bf16_engines):
+    """--bf16 (legacy): f32 weights on the device, the forward in bf16 —
+    close to the bf16 mode's counts, and not the f32 engine's."""
+    pth = tmp_path / "ref.pth"
+    torch.save({k: torch.from_numpy(np.copy(v))
+                for k, v in export_state_dict(he_params).items()}, pth)
+    args = cli.parse_args(["--torch-pth", str(pth), "--platform", "cpu",
+                           "--bucket-shapes", "64x64", "--max-batch", "4",
+                           "--bf16"])
+    svc = cli.build_service(args)
+    eng = svc.engine
+    assert eng.serve_dtype == "f32" and eng.compute_dtype == torch.bfloat16
+    assert all(p.dtype == torch.float32 for p in eng.model.parameters())
+    batch = _batch("f32", seed=5)
+    got = eng.predict_batch(batch)[0]
+    want = bf16_engines[0].predict_batch(batch)[0]
+    f32 = ServeEngine(eng.params, device="cpu").predict_batch(batch)[0]
+    mass = np.abs(f32).max()
+    assert np.abs(got - want).max() <= 4 * BF16_U * mass
+    assert np.abs(got - f32).max() > 0  # really computed in bf16
