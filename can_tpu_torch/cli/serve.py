@@ -1,11 +1,13 @@
 """Online serving CLI: load CANNet weights, warm up the bucket ladder,
 answer count/density requests over HTTP on the card.
 
-Single-engine counterpart of ``can_tpu/cli/serve.py`` (``--replicas 1``)::
+Counterpart of ``can_tpu/cli/serve.py``::
 
     python -m can_tpu_torch.cli.serve --torch-pth epoch_354.pth \\
         --bucket-shapes 384x512,512x768,768x1024 --max-batch 8 --port 8000
     python -m can_tpu_torch.cli.serve --checkpoint-dir ./checkpoints --syncBN
+    python -m can_tpu_torch.cli.serve --checkpoint-dir ./checkpoints \\
+        --replicas 4 --autoscale-max 8     # the fleet: one replica per GPU
 
     curl -X POST --data-binary @img.npy \\
         'http://127.0.0.1:8000/predict?deadline_ms=200'
@@ -22,10 +24,16 @@ At its defaults the service runs the scheduling core's priced sub-batch
 menu (``--menu-budget 3``) and priced flush (``--flush-policy priced``);
 ``--menu-budget 1 --flush-policy timer`` is the service without it.
 Clients opt into per-camera stream sessions with
-``?stream_id=cam1&frame_seq=17`` (``serve/streams.py``).  The fleet
-(``--replicas`` >= 2), its AOT bundles and the autoscaler come with ROADMAP
-Queue 1 item 3b: their flags are parsed and validated as the JAX CLI
-does, and ``--replicas`` > 1 is refused.
+``?stream_id=cam1&frame_seq=17`` (``serve/streams.py``).
+
+``--replicas N`` (N >= 2) serves through a ``FleetEngine``
+(``serve/fleet.py``): one replica per visible GPU (``--platform cpu``:
+the one CPU, so N >= 2 is refused there), work stealing, quarantine and
+self-healing, blue/green ``POST /rollout``, and with ``--autoscale-max``
+the autoscaler (``serve/autoscale.py``).  Every flag is validated before
+the weights load, in the JAX CLI's order and with its messages; AOT
+bundles (``--aot-bundle/--aot-bake``) are refused, naming ROADMAP Queue 1
+item 3c.
 """
 
 from __future__ import annotations
@@ -37,11 +45,8 @@ from typing import List, Tuple
 import numpy as np
 
 from can_tpu_torch.device import PLATFORMS, NoCudaDeviceError, resolve_device
+from can_tpu_torch.serve.fleet import AOT_MESSAGE
 from can_tpu_torch.serve.quant import SERVE_DTYPES
-
-FLEET_MESSAGE = ("--replicas > 1 (the multi-replica fleet, with "
-                 "--aot-bundle/--aot-bake/--autoscale-*) is not ported yet: "
-                 "it comes with ROADMAP Queue 1 item 3b")
 
 
 def parse_bucket_shapes(spec: str) -> List[Tuple[int, int]]:
@@ -107,8 +112,10 @@ def parse_args(argv=None):
                         "--max-wait-ms deadline")
     p.add_argument("--dispatch-order", type=str, default="priced",
                    choices=["priced", "fifo"],
-                   help="fleet work-queue order (sched.pick_work; fleet "
-                        "only, ROADMAP Queue 1 item 3b)")
+                   help="fleet work-queue order: priced = cheapest-"
+                        "feasible-first under deadline pressure with a "
+                        "starvation age bound (sched.pick_work); fifo = "
+                        "pure FIFO")
     p.add_argument("--queue-capacity", type=int, default=64,
                    help="hard bound on queued requests (beyond: queue_full)")
     p.add_argument("--high-water", type=int, default=None,
@@ -119,8 +126,10 @@ def parse_args(argv=None):
                    help="default per-request deadline (expired requests are "
                         "rejected, never dispatched)")
     p.add_argument("--replicas", type=int, default=1,
-                   help="serve-engine replicas, one per GPU (>= 2 is the "
-                        "fleet: ROADMAP Queue 1 item 3b, refused here)")
+                   help="serve-engine replicas, one per visible GPU (>= 2 "
+                        "builds the FleetEngine: work-stealing dispatch, "
+                        "quarantine and self-healing, blue/green /rollout; "
+                        "1 keeps the single-engine service)")
     p.add_argument("--serve-dtype", type=str, default="f32",
                    choices=list(SERVE_DTYPES),
                    help="f32 = full f32 (TF32 off); bf16 = bf16 weights and "
@@ -132,9 +141,11 @@ def parse_args(argv=None):
                    help="LEGACY bf16 compute with f32 weights; superseded "
                         "by --serve-dtype bf16, conflict if both given")
     p.add_argument("--aot-bundle", type=str, default="",
-                   help="fleet only (ROADMAP Queue 1 item 3b)")
+                   help="the JAX CLI's AOT bundle: refused (ROADMAP Queue 1 "
+                        "item 3c)")
     p.add_argument("--aot-bake", type=str, default="",
-                   help="fleet only (ROADMAP Queue 1 item 3b)")
+                   help="the JAX CLI's AOT bake: refused (ROADMAP Queue 1 "
+                        "item 3c)")
     p.add_argument("--autoscale-max", type=int, default=0,
                    help="fleet only: the autoscaler's replica ceiling "
                         "(> --replicas; 0 = off)")
@@ -179,8 +190,8 @@ def parse_args(argv=None):
 
 def validate_args(args) -> None:
     """The JAX CLI's flag checks, in its order and with its messages
-    (before the weights load), then the fleet's refusal (ROADMAP Queue 1
-    item 3b)."""
+    (before the weights load), then the AOT refusal (ROADMAP Queue 1
+    item 3c)."""
     if args.bf16 and args.serve_dtype != "f32":
         raise SystemExit("--bf16 is the legacy f32-params/bf16-compute "
                          "mode; with --serve-dtype use the mode itself "
@@ -209,10 +220,77 @@ def validate_args(args) -> None:
             raise SystemExit(
                 f"--autoscale-min ({args.autoscale_min}) must be in "
                 f"[1, --autoscale-max={args.autoscale_max}]")
-    if args.replicas > 1:
-        raise SystemExit(FLEET_MESSAGE)
+    if args.aot_bundle or args.aot_bake:
+        raise SystemExit(f"--aot-bundle/--aot-bake: {AOT_MESSAGE}")
     if args.max_batch < 1:
         raise SystemExit(f"--max-batch must be >= 1, got {args.max_batch}")
+
+
+def _run_config_for(checkpoint_dir, torch_pth, params_npz):
+    """Run config for the rollout drift guard — imported .pth/.npz files
+    carry none, so the guard is skipped for them.  One helper so
+    serve-time and rollout-time agree."""
+    from can_tpu_torch.utils.checkpoint import load_run_config
+
+    if torch_pth or params_npz:
+        return None
+    return load_run_config(checkpoint_dir)
+
+
+def make_rollout_loader(base_args):
+    """Checkpoint loader for the HTTP /rollout endpoint: a JSON source
+    spec (the CLI's keys) -> ``(state_dict, run_config)``, through the
+    eval CLI's validated loading path — anything you can serve you can
+    roll out."""
+    import argparse as _ap
+
+    def load(spec: dict):
+        from can_tpu_torch.cli.test import load_params, validate_params_source
+
+        allowed = {"checkpoint_dir", "epoch", "params_npz", "torch_pth",
+                   "syncBN"}
+        unknown = set(spec) - allowed
+        if unknown:
+            raise ValueError(f"unknown rollout keys: {sorted(unknown)} "
+                             f"(allowed: {sorted(allowed)})")
+        # an imported-source spec (torch_pth / params_npz) must NOT
+        # inherit the serving checkpoint_dir: validate_params_source
+        # rejects the combination, which would 409 every such rollout
+        imported = bool(spec.get("torch_pth") or spec.get("params_npz"))
+        ns = _ap.Namespace(
+            # default to the SERVING run's directory (a bare {"epoch": N}
+            # rolls forward within it), as syncBN below
+            checkpoint_dir=spec.get(
+                "checkpoint_dir",
+                None if imported else base_args.checkpoint_dir),
+            epoch=spec.get("epoch"),
+            torch_pth=spec.get("torch_pth", ""),
+            params_npz=spec.get("params_npz", ""),
+            syncBN=bool(spec.get("syncBN", base_args.syncBN)),
+            seed=base_args.seed)
+        try:
+            validate_params_source(ns)
+            state_dict, _ = load_params(ns)
+        except SystemExit as e:
+            # the loading path speaks CLI (SystemExit); over HTTP that
+            # must become a 409-able error, not a dead handler thread
+            raise ValueError(str(e)) from None
+        return state_dict, _run_config_for(ns.checkpoint_dir, ns.torch_pth,
+                                           ns.params_npz)
+
+    return load
+
+
+def fleet_devices(platform: str) -> list:
+    """The fleet's scale universe: the one CPU under ``--platform cpu``,
+    else every visible GPU (``NoCudaDeviceError`` without one)."""
+    import torch
+
+    from can_tpu_torch.serve.fleet import default_devices
+
+    if platform == "cpu":
+        return [torch.device("cpu")]
+    return default_devices()
 
 
 def build_service(args, telemetry=None):
@@ -222,18 +300,38 @@ def build_service(args, telemetry=None):
     import torch
 
     from can_tpu_torch.cli.test import load_params, validate_params_source
-    from can_tpu_torch.serve import CountService, ServeEngine
+    from can_tpu_torch.serve import CountService, FleetEngine, ServeEngine
+    from can_tpu_torch.serve.fleet import check_replicas
 
     try:
         device = resolve_device(args.platform)
+        devices = fleet_devices(args.platform) if args.replicas > 1 else None
     except NoCudaDeviceError as e:
         raise SystemExit(f"[serve] {e}")
     validate_params_source(args)
     validate_args(args)
+    if devices is not None:
+        try:
+            check_replicas(args.replicas, devices)
+        except ValueError as e:
+            raise SystemExit(f"[serve] {e}")
     state_dict, _ = load_params(args)
-    engine = ServeEngine(state_dict, device=device,
-                         serve_dtype=args.serve_dtype,
-                         compute_dtype=torch.bfloat16 if args.bf16 else None)
+    compute_dtype = torch.bfloat16 if args.bf16 else None
+    if devices is not None:
+        engine = FleetEngine(
+            state_dict, replicas=args.replicas, serve_dtype=args.serve_dtype,
+            compute_dtype=compute_dtype, devices=devices,
+            telemetry=telemetry,
+            run_config=_run_config_for(args.checkpoint_dir, args.torch_pth,
+                                       args.params_npz),
+            probe_cooldown_s=args.probe_cooldown_s,
+            watchdog_slack=args.watchdog_slack,
+            watchdog_default_s=args.watchdog_default_s,
+            dispatch_order=args.dispatch_order)
+    else:
+        engine = ServeEngine(state_dict, device=device,
+                             serve_dtype=args.serve_dtype,
+                             compute_dtype=compute_dtype)
     high_water = (args.high_water if args.high_water is not None
                   else max(1, (3 * args.queue_capacity) // 4))
     shapes = args.bucket_shapes
@@ -250,16 +348,38 @@ def build_service(args, telemetry=None):
                            stream_ttl_s=args.stream_ttl_s,
                            degrade_policy=args.degrade_policy,
                            max_body_mb=args.max_body_mb)
+    if devices is not None:
+        # the /rollout endpoint's checkpoint loader (fleet only: a single
+        # engine has no staging replica to warm on)
+        service.rollout_loader = make_rollout_loader(args)
     # any (H bound, W bound) pairing can occur: warm the whole cross
     # product, at every menu size
     grid = [(h, w) for h in ladder[0] for w in ladder[1]]
     dtypes = (np.float32, np.uint8) if args.u8_warmup else (np.float32,)
     report = service.warmup(grid, dtypes=dtypes)
     menu = service.stats()["sched"]["menu"]
+    where = (f"{args.replicas} replicas on "
+             f"{', '.join(str(d) for d in engine.devices)}"
+             if devices is not None else str(device))
     print(f"[serve] warmup: {report['compiles']} programs over "
           f"{report['shapes']} bucket shapes x menu {tuple(menu)} "
           f"[{args.serve_dtype}{', bf16 compute' if args.bf16 else ''}] on "
-          f"{device} in {report['seconds']:.1f}s")
+          f"{where} in {report['seconds']:.1f}s")
+    if devices is not None and args.autoscale_max:
+        from can_tpu_torch.serve import Autoscaler, AutoscalePolicy
+
+        policy = AutoscalePolicy(
+            min_replicas=(args.autoscale_min
+                          if args.autoscale_min is not None
+                          else args.replicas),
+            max_replicas=args.autoscale_max,
+            p99_high_s=(args.deadline_ms / 1e3
+                        if args.deadline_ms else None),
+            interval_s=args.autoscale_interval_s)
+        service.autoscaler = Autoscaler(service, policy)
+        print(f"[serve] autoscaler armed: {policy.min_replicas}.."
+              f"{policy.max_replicas} replicas, "
+              f"eval every {policy.interval_s:g}s")
     return service
 
 
@@ -270,9 +390,11 @@ def main(argv=None) -> int:
     service = build_service(args)
     with service:
         httpd = serve_http(service, host=args.host, port=args.port)
+        endpoints = "POST /predict, GET /healthz, GET /stats"
+        if args.replicas > 1:
+            endpoints += ", POST /rollout"
         print(f"[serve] listening on http://{args.host}:"
-              f"{httpd.server_address[1]} (POST /predict, GET /healthz, "
-              f"GET /stats)", flush=True)
+              f"{httpd.server_address[1]} ({endpoints})", flush=True)
         try:
             httpd.serve_forever()
         except KeyboardInterrupt:

@@ -33,6 +33,7 @@ scratch per (device, stream), and each launch leaves the ticket at 0.
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -44,8 +45,10 @@ BACKWARD_KERNEL = "bn_moments_backward"
 
 # Kernel launches since the last reset_launches(): proof that a run went
 # through the kernels (the plain versions and CPU tensors never count).
+# Guarded by a lock: threads that launch at once must not lose a count.
 LAUNCHES = 0
 BACKWARD_LAUNCHES = 0
+_launches_lock = threading.Lock()
 
 # (n_pix, C, is_bf16) -> scratch bytes of the forward's plan
 _scratch_bytes: Dict[Tuple[int, int, int], int] = {}
@@ -58,8 +61,18 @@ _LIB: Optional[ctypes.CDLL] = None
 
 def reset_launches() -> None:
     global LAUNCHES, BACKWARD_LAUNCHES
-    LAUNCHES = 0
-    BACKWARD_LAUNCHES = 0
+    with _launches_lock:
+        LAUNCHES = 0
+        BACKWARD_LAUNCHES = 0
+
+
+def _count_launch(backward: bool = False) -> None:
+    global LAUNCHES, BACKWARD_LAUNCHES
+    with _launches_lock:
+        if backward:
+            BACKWARD_LAUNCHES += 1
+        else:
+            LAUNCHES += 1
 
 
 def masked_moment_sums(yf: torch.Tensor, m: torch.Tensor) -> Tuple[torch.Tensor, ...]:
@@ -183,7 +196,6 @@ def moment_sums_cuda(y: torch.Tensor, m: torch.Tensor) -> Tuple[torch.Tensor, ..
     stream (one device launch): y (B, h, w, C) f32 or bf16, m (B, h, w,
     1) f32 -> (s1 (C,), s2 (C,), s0 ()) f32.  Raises on anything the
     kernel does not take."""
-    global LAUNCHES
     y, m, n_pix, c, is_bf16, lib = _checked(y, m, "moment_sums_cuda")
     out = torch.empty(2 * c + 1, device=y.device, dtype=torch.float32)
     if n_pix == 0:
@@ -204,7 +216,7 @@ def moment_sums_cuda(y: torch.Tensor, m: torch.Tensor) -> Tuple[torch.Tensor, ..
     if rc != 0:
         raise RuntimeError(f"bn_moments kernel launch failed: CUDA error {rc} "
                            f"for y {tuple(y.shape)} {y.dtype}")
-    LAUNCHES += 1
+    _count_launch()
     return out[:c], out[c:2 * c], out[2 * c]
 
 
@@ -214,7 +226,6 @@ def moment_sums_backward_cuda(y: torch.Tensor, m: torch.Tensor, g1: torch.Tensor
     stream: ``dy = m (g1 + 2 g2 y)`` in y's dtype and shape, from y (B, h,
     w, C) f32 or bf16, m (B, h, w, 1) f32 and g1, g2 (C,).  Raises on
     anything the kernel does not take."""
-    global BACKWARD_LAUNCHES
     y, m, n_pix, c, is_bf16, lib = _checked(y, m, "moment_sums_backward_cuda")
     for name, g in (("g1", g1), ("g2", g2)):
         if tuple(g.shape) != (c,) or g.device != y.device:
@@ -234,7 +245,7 @@ def moment_sums_backward_cuda(y: torch.Tensor, m: torch.Tensor, g1: torch.Tensor
     if rc != 0:
         raise RuntimeError(f"bn_moments_backward kernel launch failed: CUDA "
                            f"error {rc} for y {tuple(y.shape)} {y.dtype}")
-    BACKWARD_LAUNCHES += 1
+    _count_launch(backward=True)
     return dy
 
 

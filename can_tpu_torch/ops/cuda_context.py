@@ -50,6 +50,7 @@ plain PyTorch: the JAX package has no backward kernel either.
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import Sequence, Tuple
 
 import torch
@@ -66,12 +67,22 @@ WCAT_BLOCK = 32  # channels per Wcat column block (csrc: kDB)
 
 # Kernel launches since the last reset_launches(): proof that a run went
 # through the kernel (the plain version and CPU tensors never count).
+# Fleet replicas launch from several threads at once, and ``+= 1`` on a
+# global is a read, an add and a write: the lock keeps every increment.
 LAUNCHES = 0
+_launches_lock = threading.Lock()
 
 
 def reset_launches() -> None:
     global LAUNCHES
-    LAUNCHES = 0
+    with _launches_lock:
+        LAUNCHES = 0
+
+
+def _count_launch() -> None:
+    global LAUNCHES
+    with _launches_lock:
+        LAUNCHES += 1
 
 
 def precompute(aves: Sequence[torch.Tensor],
@@ -186,7 +197,6 @@ def context_tail_cuda(fv: torch.Tensor, avew: torch.Tensor, uh: torch.Tensor,
     ``LAUNCHES``); same arguments and result as
     ``context_tail_reference``.  Raises on anything the kernel does not
     take."""
-    global LAUNCHES
     if not fv.is_cuda:
         raise ValueError(f"context_tail_cuda runs on CUDA tensors, got fv on "
                          f"{fv.device} (context_tail dispatches by device)")
@@ -224,7 +234,7 @@ def context_tail_cuda(fv: torch.Tensor, avew: torch.Tensor, uh: torch.Tensor,
     if rc != 0:
         raise RuntimeError(f"context_fused kernel launch failed: CUDA error "
                            f"{rc} for fv {tuple(fv.shape)} {fv.dtype}")
-    LAUNCHES += 1
+    _count_launch()
     return out
 
 

@@ -1,7 +1,9 @@
 """can_tpu_torch.serve — online CANNet counting: bucketed micro-batches
 priced by the scheduling core, deadlines, backpressure, per-stream
-sessions, f32/bf16/int8 weights, HTTP (counterpart of ``can_tpu/serve``,
-single engine)::
+sessions, f32/bf16/int8 weights, HTTP, and the serving fleet — replicas
+with work stealing, blue/green rollout, self-healing and the autoscaler
+(counterpart of ``can_tpu/serve``; AOT bundles wait for ROADMAP Queue 1
+item 3c)::
 
     engine = ServeEngine(state_dict, device=resolve_device("default"))
     ladder = ((384, 512, 768), (512, 768, 1024))
@@ -13,13 +15,28 @@ single engine)::
         cam = svc.predict(prepare_image(frame), stream_id="cam1",
                           frame_seq=17)  # cam.degraded, cam.staleness_s
 
+    fleet = FleetEngine(state_dict, replicas=2)   # one replica per GPU
+    svc = CountService(fleet, max_batch=8, bucket_ladder=ladder)
+    svc.warmup(...); svc.start(); svc.rollout(new_state_dict)
+
 Guarantees: every submitted request resolves or is rejected with a typed
 reason; the engine's signature count is (bucket, menu size, dtype),
-all paid in ``warmup``.
+all paid in ``warmup`` (per replica in a fleet).
 """
 
+from can_tpu_torch.serve.autoscale import Autoscaler, AutoscalePolicy
 from can_tpu_torch.serve.batcher import MicroBatcher
 from can_tpu_torch.serve.engine import ServeEngine, tree_signature
+from can_tpu_torch.serve.fleet import (
+    REPLICA_ACTIVE,
+    REPLICA_DRAINING,
+    REPLICA_QUARANTINED,
+    REPLICA_WEDGED,
+    FleetClosedError,
+    FleetEngine,
+    ReplicaWedgedError,
+    priced_deadline_s,
+)
 from can_tpu_torch.serve.quant import (
     PARITY_LADDER,
     SERVE_DTYPES,
@@ -60,6 +77,9 @@ from can_tpu_torch.serve.streams import (
 )
 
 __all__ = [
+    "Autoscaler", "AutoscalePolicy", "FleetClosedError", "FleetEngine",
+    "REPLICA_ACTIVE", "REPLICA_DRAINING", "REPLICA_QUARANTINED",
+    "REPLICA_WEDGED", "ReplicaWedgedError", "priced_deadline_s",
     "BoundedRequestQueue", "CountService", "MicroBatcher", "PARITY_LADDER",
     "SERVE_DTYPES", "compute_dtype_for", "dequantize_tree", "host_tree",
     "param_bytes", "parity_report", "quantize_tree", "tree_signature",

@@ -86,10 +86,14 @@ class ServeEngine:
     quantized: ``state_dict`` is already in ``serve_dtype`` storage form.
     device: where the weights live and the batches run (no default: the
     caller resolves it, ``device.resolve_device``).
+    name: the engine's program name; a fleet names each replica
+      incarnation apart (``f"{name}_r{k}"``), and stream pins hold it.
     """
 
     def __init__(self, state_dict, *, device, serve_dtype: str = "f32",
-                 compute_dtype=None, quantized: bool = False, ds: int = 8):
+                 compute_dtype=None, quantized: bool = False, ds: int = 8,
+                 name: str = "serve_predict"):
+        self.name = name
         self.device = torch.device(device)
         self.serve_dtype = serve_dtype
         self.ds = int(ds)

@@ -1,12 +1,19 @@
 """CountService: the serving front door, programmatic and over HTTP
 (counterpart of ``can_tpu/serve/service.py``: ``prepare_image`` :63,
-``CountService`` :120, ``make_http_handler`` :724, ``serve_http`` :943 —
-the single-engine service; the fleet, its rollout and the autoscaler
-come with a later slice)::
+``CountService`` :120, ``make_http_handler`` :724, ``serve_http`` :943)::
 
     client -> submit() -> [stream session: admit / degrade]
                        -> BoundedRequestQueue -> MicroBatcher (thread)
                        -> ServeEngine.predict_batch -> resolve ServeRequests
+
+The engine may be a single ``ServeEngine`` (dispatch executes inline on
+the batcher thread) or a ``FleetEngine`` (``serve/fleet.py``): dispatch
+then ENQUEUES the assembled batch with its stream pin and returns, and
+the replica worker threads call ``_complete`` (or ``_fail_batch``) back
+on this service — one resolution path either way.  Fleet services add
+per-replica rows to ``stats()`` and ``healthz()``, ``rollout()`` and
+``POST /rollout``, and an optional ``autoscaler`` attribute
+(``serve/autoscale.py``) that starts and stops with the service.
 
 The scheduling core (``can_tpu_torch/sched``) prices the batcher's launch
 sizes and flush deadlines; ``menu_budget=1`` with ``flush_policy="timer"``
@@ -35,6 +42,7 @@ from can_tpu_torch.serve.engine import ServeEngine
 from can_tpu_torch.serve.queue import (
     REJECT_BACKPRESSURE,
     REJECT_DEADLINE,
+    REJECT_ERROR,
     REJECT_QUEUE_FULL,
     REJECT_SHUTDOWN,
     REJECT_STALE_FRAME,
@@ -127,6 +135,16 @@ class CountService:
             raise ValueError(f"max_body_mb must be positive, got "
                              f"{max_body_mb}")
         self.engine = engine
+        # fleet mode: dispatch enqueues instead of executing inline, and
+        # replica workers call _complete/_fail_batch back on this service
+        self._fleet = engine if hasattr(engine, "submit_work") else None
+        if self._fleet is not None:
+            self._fleet.bind(on_complete=self._complete,
+                             on_fail=self._fail_batch,
+                             on_reject=self._note_reject, clock=clock)
+            if telemetry is None:
+                telemetry = self._fleet.telemetry
+        self._replica_stats: dict = {}
         budget = (DEFAULT_MENU_BUDGET if menu_budget is None
                   else int(menu_budget))
         if budget == 1 and flush_policy == "timer":
@@ -197,7 +215,14 @@ class CountService:
 
     def start(self) -> "CountService":
         if not self._started:
+            if self._fleet is not None:
+                self._fleet.start()
             self.batcher.start()
+            auto = getattr(self, "autoscaler", None)
+            if auto is not None:
+                # wired by cli/serve.py (or tests): the scale loop lives
+                # and dies with the service
+                auto.start()
             self._started = True
         return self
 
@@ -206,10 +231,19 @@ class CountService:
         if self._closed:
             return
         self._closed = True
+        auto = getattr(self, "autoscaler", None)
+        if auto is not None:
+            # BEFORE the drain: a scale decision mid-teardown would race
+            # the fleet's close choreography
+            auto.close()
         for r in self.queue.close():
             r.reject(REJECT_SHUTDOWN, "service closing")
             self._count_reject(REJECT_SHUTDOWN)
-        self.batcher.close()
+        self.batcher.close()  # flushes pending groups through the engine
+        if self._fleet is not None:
+            # after the batcher: its shutdown flush enqueues final work,
+            # which the replicas drain before their threads stop
+            self._fleet.close()
         self._started = False
 
     def __enter__(self) -> "CountService":
@@ -354,47 +388,90 @@ class CountService:
             lat = self.latency.percentiles()
             cost = dict(self._cost)
             sizes = dict(self._sizes)
+            rep_counts = {k: dict(v) for k, v in self._replica_stats.items()}
         slots = max(s["batch_slots"], 1)
         batches = max(s["batches"], 1)
-        return {**s,
-                "queue_depth": self.queue.depth(),
-                "shedding": self.queue.shedding,
-                "mean_batch_fill": round(s["batch_valid"] / slots, 4),
-                "latency_p50_s": lat["p50_s"],
-                "latency_p95_s": lat["p95_s"],
-                "latency_max_s": lat["max_s"],
-                "compile_count": self.engine.compile_count,
-                # the scheduling core: its menu and flush policy, the
-                # launches per size, and predicted vs realized cost per
-                # batch (equal on every batch: cost_mismatches 0)
-                "sched": {
-                    "menu": (list(self.sched.menu) if self.sched is not None
-                             else [self.max_batch]),
-                    "flush_policy": self.flush_policy,
-                    "priced": self.sched is not None,
-                    "launches_by_size": {str(k): v for k, v in
-                                         sorted(sizes.items())},
-                    "predicted_cost_px_per_batch": round(
-                        cost["predicted_cost_px"] / batches, 3),
-                    "realized_cost_px_per_batch": round(
-                        cost["realized_cost_px"] / batches, 3),
-                    "cost_mismatches": cost["cost_mismatches"]},
-                # per-stream sessions: the degradation ladder's view
-                "streams": self.streams.stats()}
+        out = {**s,
+              "queue_depth": self.queue.depth(),
+              "shedding": self.queue.shedding,
+              "mean_batch_fill": round(s["batch_valid"] / slots, 4),
+              "latency_p50_s": lat["p50_s"],
+              "latency_p95_s": lat["p95_s"],
+              "latency_max_s": lat["max_s"],
+              "compile_count": self.engine.compile_count,
+              # the scheduling core: its menu and flush policy, the
+              # launches per size, and predicted vs realized cost per
+              # batch (equal on every batch: cost_mismatches 0)
+              "sched": {
+                  "menu": (list(self.sched.menu) if self.sched is not None
+                           else [self.max_batch]),
+                  "flush_policy": self.flush_policy,
+                  "priced": self.sched is not None,
+                  "launches_by_size": {str(k): v for k, v in
+                                       sorted(sizes.items())},
+                  "predicted_cost_px_per_batch": round(
+                      cost["predicted_cost_px"] / batches, 3),
+                  "realized_cost_px_per_batch": round(
+                      cost["realized_cost_px"] / batches, 3),
+                  "cost_mismatches": cost["cost_mismatches"]},
+              # per-stream sessions: the degradation ladder's view
+              "streams": self.streams.stats()}
+        if self._fleet is not None:
+            # per-replica rows: service-side work counters joined with the
+            # fleet's health snapshot
+            fh = self._fleet.healthz()
+            health = {r["replica"]: r for r in fh["replicas"]}
+            out["replicas"] = {
+                str(k): {**rep_counts.get(k, {"batches": 0,
+                                              "completed": 0}),
+                         "quarantined": int(h["state"] != "active"),
+                         "failures": h["failures"],
+                         "generation": h["generation"]}
+                for k, h in health.items()}
+            out["live_replicas"] = fh["live"]
+            out["generation"] = fh["generation"]
+            # a fleet serving two checkpoints at once says so
+            out["mixed_generations"] = bool(fh.get("mixed_generations"))
+        return out
+
+    def latency_percentile(self, q: float):
+        """One request-latency percentile under the service lock — the
+        autoscaler's p99 signal."""
+        with self._lock:
+            return self.latency.percentile(q)
 
     def healthz(self) -> dict:
-        return {"ok": not self._closed}
+        """Liveness; a fleet adds its per-replica rows and reports
+        ok=False with zero live replicas (the /healthz 503)."""
+        if self._fleet is None:
+            return {"ok": not self._closed}
+        return self._fleet.healthz()
 
-    def rollout(self, params, batch_stats=None, *, run_config=None,
+    def rollout(self, state_dict, *, run_config=None,
                 allow_config_change: bool = False) -> dict:
-        """Blue/green checkpoint flip — fleet engines only.  A
-        single-engine service has no second engine to stage on: restart
-        it, or call ``engine.swap_params`` between launches."""
-        raise RuntimeError("rollout needs a FleetEngine "
-                           "(serve with --replicas >= 2 fleet mode)")
+        """Blue/green checkpoint flip (fleet engines only): see
+        ``FleetEngine.rollout``.  A single-engine service has no second
+        engine to stage on: restart it, or call ``engine.swap_params``
+        between launches."""
+        if self._fleet is None:
+            raise RuntimeError("rollout needs a FleetEngine "
+                               "(serve with --replicas >= 2 fleet mode)")
+        return self._fleet.rollout(state_dict, run_config=run_config,
+                                   allow_config_change=allow_config_change)
 
     # -- batcher dispatch (runs on the batcher thread) -------------------
     def _dispatch(self, bucket_hw, batch, requests) -> None:
+        if self._fleet is not None:
+            # hand the batch to whichever replica frees up first; stream
+            # batches carry their sticky pin, validated against the LIVE
+            # replica set here — a pin to a quarantined, wedged or
+            # replaced incarnation is re-pinned before it can queue
+            pin = None
+            if self.streams.active_count():
+                pin = self.streams.pin_for(requests,
+                                           self._fleet.live_tokens())
+            self._fleet.submit_work(bucket_hw, batch, requests, pin=pin)
+            return
         t0 = time.perf_counter()
         counts, density = self.engine.predict_batch(
             batch, want_density=any(r.want_density for r in requests))
@@ -404,7 +481,11 @@ class CountService:
                        execute_s, self.engine.last_batch_compiled)
 
     def _complete(self, bucket_hw, batch, requests, counts, density,
-                  execute_s, compiled) -> None:
+                  execute_s, compiled, replica=None,
+                  program: str = "serve_predict") -> None:
+        """Resolve a launched batch: on the batcher thread, or on a fleet
+        replica's worker thread (``replica`` its index, ``program`` its
+        engine's incarnation name, the stream pin's token)."""
         now = self._clock()
         slots = batch.image.shape[0]
         fill = len(requests) / slots
@@ -420,9 +501,10 @@ class CountService:
             if req.stream_id is not None:
                 # fold the fresh count into the session BEFORE resolving:
                 # a degraded answer racing this completion serves it
-                self.streams.note_completed(req.stream_id,
-                                            float(counts[slot]), dens,
-                                            bucket_hw, now=now)
+                self.streams.note_completed(
+                    req.stream_id, float(counts[slot]), dens, bucket_hw,
+                    now=now, replica=replica,
+                    token=None if replica is None else program)
             req.resolve(ServeResult(
                 count=float(counts[slot]), density=dens,
                 bucket_hw=tuple(bucket_hw), batch_fill=fill,
@@ -460,6 +542,12 @@ class CountService:
             self._cost["realized_cost_px"] += realized
             self._cost["cost_mismatches"] += not costs_match(predicted,
                                                              realized)
+            if replica is not None:
+                rs = self._replica_stats.setdefault(
+                    replica, {"batches": 0, "completed": 0})
+                rs["batches"] += 1
+                rs["completed"] += len(requests)
+        extra = {} if replica is None else {"replica": replica}
         self._emit("serve.batch", bucket=list(bucket_hw), size=slots,
                    valid=len(requests), fill=round(fill, 4),
                    fill_pct=round(100.0 * fill, 2),
@@ -467,7 +555,7 @@ class CountService:
                    predicted_cost_px=round(predicted, 1),
                    realized_cost_px=round(realized, 1),
                    execute_s=round(execute_s, 6), compiled=compiled,
-                   queue_depth=self.queue.depth())
+                   queue_depth=self.queue.depth(), **extra)
 
     def _note_reject(self, reason: str, count: int = 1) -> None:
         """Count a rejection whose event (if any) was emitted already —
@@ -479,6 +567,19 @@ class CountService:
         self._note_reject(reason)
         self._emit("serve.reject", reason=reason, count=1,
                    queue_depth=self.queue.depth())
+
+    def _fail_batch(self, requests, exc) -> None:
+        """Fleet failure sink: a batch that failed on two replicas (or
+        outlived every replica) rejects its requests with ``error``."""
+        n = 0
+        for r in requests:
+            if not r.done:
+                r.reject(REJECT_ERROR, f"{type(exc).__name__}: {exc}")
+                n += 1
+        if n:
+            self._note_reject(REJECT_ERROR, n)
+            self._emit("serve.reject", reason=REJECT_ERROR, count=n,
+                       detail=f"{type(exc).__name__}: {exc}")
 
 
 # -- HTTP front end -----------------------------------------------------
@@ -499,8 +600,19 @@ def make_http_handler(service: CountService):
                        request; 413 when the body exceeds the cap
                     The X-CanTpu-Trace-Id header, when given, is the
                     request's trace_id and is echoed back.
-    POST /rollout   -> 501: a single-engine server has no rollout
-    GET  /healthz   -> 200 {"ok": true}
+    POST /rollout   (fleet) body: JSON checkpoint source — the CLI's
+                    keys ({"checkpoint_dir", "epoch", "params_npz",
+                    "torch_pth", "syncBN", "allow_config_change"}) —
+                    loaded by ``service.rollout_loader(spec) ->
+                    (state_dict, run_config)`` (wired by cli/serve.py),
+                    then blue/green-flipped; synchronous, traffic keeps
+                    flowing -> 200 the rollout report; 409 when the drift
+                    or structure guard refuses or the source is bad; 500
+                    on an unexpected loader failure; 501 without a loader;
+                    413 over the body cap
+    GET  /healthz   -> 200 {"ok": true, ...}; a fleet adds per-replica
+                    state, live count and generation, and answers 503
+                    when no replica is live
     GET  /stats     -> 200 stats() JSON
     """
     from http.server import BaseHTTPRequestHandler
@@ -560,11 +672,37 @@ def make_http_handler(service: CountService):
 
         def _do_rollout(self):
             # the body cap first, whatever the wiring
-            if self._body_capped() is None:
+            n = self._body_capped()
+            if n is None:
                 return
-            self._send(501, {"error": "rollout is not wired on this "
-                                      "server (no rollout_loader; "
-                                      "fleet CLI serves wire it)"})
+            loader = getattr(service, "rollout_loader", None)
+            if loader is None:
+                self._send(501, {"error": "rollout is not wired on this "
+                                          "server (no rollout_loader; "
+                                          "fleet CLI serves wire it)"})
+                return
+            try:
+                spec = json.loads(self.rfile.read(n) or b"{}")
+                if not isinstance(spec, dict):
+                    raise ValueError("rollout body must be a JSON object")
+            except Exception as e:  # noqa: BLE001 — client error
+                self._send(400, {"error": f"bad request: {e}"})
+                return
+            try:
+                allow = bool(spec.pop("allow_config_change", False))
+                state_dict, run_config = loader(spec)
+                report = service.rollout(state_dict, run_config=run_config,
+                                         allow_config_change=allow)
+            except (ValueError, RuntimeError, FileNotFoundError) as e:
+                # drift guard / structure guard / bad source: refused,
+                # the serving fleet is untouched
+                self._send(409, {"error": str(e)})
+                return
+            except Exception as e:  # noqa: BLE001 — a corrupt file or a
+                # loader bug must answer the client, never drop the socket
+                self._send(500, {"error": f"{type(e).__name__}: {e}"})
+                return
+            self._send(200, report)
 
         def do_POST(self):
             url = urlparse(self.path)
@@ -637,8 +775,9 @@ def make_http_handler(service: CountService):
 def serve_http(service: CountService, *, host: str = "127.0.0.1",
                port: int = 8000):
     """A ``ThreadingHTTPServer`` for ``service`` (the caller runs
-    ``serve_forever()``): one thread per client connection, the single
-    batcher thread owns the device."""
+    ``serve_forever()``): one thread per client connection; the batcher
+    thread (one engine) or the replica threads (a fleet) own the
+    devices."""
     from http.server import ThreadingHTTPServer
 
     class Server(ThreadingHTTPServer):

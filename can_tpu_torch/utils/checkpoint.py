@@ -1,6 +1,6 @@
 """Checkpoints of the full train state on ``torch.save`` (counterpart of
-``can_tpu/utils/checkpoint.py``: ``CheckpointManager`` :136 and the
-run-config drift guard).
+``can_tpu/utils/checkpoint.py``: ``CheckpointManager`` :136, the
+run-config drift guard and the rollout's ``check_serve_config`` :93).
 
 A checkpoint is everything a resume needs to continue the run exactly:
 the model's state dict (parameters and BN running statistics), the
@@ -111,6 +111,25 @@ def check_resume_config(saved: dict, current: dict, *,
             f"resume config drift vs the checkpoint's run ({detail})")
     return drifted
 
+
+
+# The run-config keys that change what a checkpoint IS for serving: the
+# model variant (syncBN decides whether BN running statistics exist, so
+# the served tree's signature) and the training compute dtype.  Schedule
+# keys (lr, epochs, batch, seed) are training-only — a fleet rollout
+# between checkpoints of one run must not trip on a mid-run --lr change.
+SERVE_CONFIG_KEYS = ("syncBN", "bf16")
+
+
+def check_serve_config(serving: dict, incoming: dict, *,
+                       allow: bool = False) -> List[str]:
+    """Rollout drift guard: compare only the serve-relevant keys of the
+    fleet's current run config against the incoming checkpoint's.  Same
+    contract as :func:`check_resume_config` — returns the drifted keys,
+    raises :class:`ConfigDriftError` unless ``allow``."""
+    sub = {k: serving.get(k) for k in SERVE_CONFIG_KEYS}
+    cur = {k: incoming.get(k) for k in SERVE_CONFIG_KEYS}
+    return check_resume_config(sub, cur, allow=allow)
 
 class CheckpointManager:
     """Latest-N plus best-MAE checkpointing of a ``TrainState`` under

@@ -4,6 +4,7 @@
 from __future__ import annotations
 
 import collections
+from typing import Optional
 
 import numpy as np
 
@@ -32,3 +33,10 @@ class StepTimer:
                 "p50_s": float(np.percentile(arr, 50)),
                 "p95_s": float(np.percentile(arr, 95)),
                 "max_s": float(arr.max())}
+
+    def percentile(self, q: float) -> Optional[float]:
+        """One percentile over the reservoir (None when empty) — the
+        autoscaler reads p99 here."""
+        if not self._samples:
+            return None
+        return float(np.percentile(np.asarray(self._samples, np.float64), q))

@@ -146,6 +146,36 @@ slice 6, in this order after phase 3 (phases 4-8 run after it):
    golden   — tests/test_golden.py's recipe (10 epochs, batch 8, the
               plain model) against its JAX goldens: f32 within 1%, bf16
               reported against 5%;
+slice 9, right after phase 3 (before slice 6's phases):
+   fleet    — the serving fleet (``serve/fleet.py``) with two replicas on
+              the one card: devices [cuda:0] x 2 of a scale universe
+              [cuda:0] x 3 (a replica owns a slot, not a device), one
+              bucket at 384x512, the default menu, the He weights.  The
+              replicas time-slice the card: a correctness check, whose
+              times say nothing of two GPUs.  ``python -m
+              can_tpu_torch.cli.serve --replicas 2`` is refused by the
+              card count before any weights load; a clean burst of 48
+              requests in f32 and bf16 (all answered, both replicas serve,
+              no new signature, every replica active with 0 failures,
+              counts equal a single engine's: f32 rel 1e-5, bf16 2e-2);
+              ``CAN_TPU_FAULTS`` replica_crash at replica 0's batch 2 (the
+              batch redispatched once, nothing lost, memory_allocated
+              falls by at least the replica's parameter bytes at the
+              quarantine, resurrection at the current generation after a
+              0.5 s cooldown); replica_hang of 3 s at replica 1 with a
+              0.5 s watchdog (wedged; the batch served by the survivor
+              within the deadline + 1 s); rollout under a steady stream in
+              f32 and bf16 (0 rejected, generation 1 everywhere, no new
+              signature, lone requests after the flip bitwise equal to a
+              fresh engine's); add_replica then remove_replica under
+              traffic (0 dropped; time to first ready, new signatures,
+              and a fresh engine's first launch against steady state per
+              signature); an Autoscaler (max 3) up on bursts and down on
+              idle (0 dropped).  In every fleet window the context
+              kernel's launches equal the fleet engines' predicts
+              (warmups, batches, probes, staging, scale-ups); the burst's
+              p50/p99 and images/s for 1 against 2 replicas are reported
+              beside the card's name and power limit;
 slice 7, last:
    ddp      — data parallelism on the one card.  World 1 over NCCL: the
               train CLI under ``torchrun --standalone --nproc_per_node=1``
@@ -1114,6 +1144,615 @@ def check_swap(run: dict) -> None:
         f"fresh engine on them: worst rel {worst:.2e} (tolerance {SWAP_RTOL}); "
         f"they moved by at least {moved:.2e} from the old weights; a bf16 tree "
         f"refused: {refusal[:60]}...")
+
+
+# [fleet]: the serving fleet on the one card.  Two replicas share cuda:0
+# (devices [cuda:0] x 2 of a universe [cuda:0] x 3: a replica owns a slot,
+# not a device), so the phase checks the fleet's behaviour on the card and
+# its times say nothing of two GPUs
+FLEET_BUCKET = SLICE8_BUCKET
+FLEET_BURST = 48
+# each served count vs a single ServeEngine's on the same weights and image
+FLEET_RTOL = {"f32": 1e-5, "bf16": 2e-2}
+FLEET_HANG_S, FLEET_WATCHDOG_S, FLEET_COOLDOWN_S = 3.0, 0.5, 0.5
+FLEET_SLOTS = 3
+# the autoscaler's dead time after a move: long enough that the replica it
+# added is not drained on idle before work steered to it has run
+FLEET_AUTOSCALE_COOLDOWN_S = 2.0
+
+
+class PredictCount:
+    """Successful ``ServeEngine.predict_batch`` calls while installed,
+    from every thread: each one runs the context tail once, so on the card
+    each must be one launch of the context kernel."""
+
+    def __init__(self):
+        from can_tpu_torch.serve.engine import ServeEngine
+
+        self._cls, self._orig = ServeEngine, ServeEngine.predict_batch
+        self._lock = threading.Lock()
+        self.n = 0
+        orig, me = self._orig, self
+
+        def counted(engine, *a, **kw):
+            out = orig(engine, *a, **kw)
+            with me._lock:
+                me.n += 1
+            return out
+
+        ServeEngine.predict_batch = counted
+
+    def close(self) -> None:
+        self._cls.predict_batch = self._orig
+
+
+def fleet_service(sd, serve_dtype: str, telemetry=None, replicas: int = 2,
+                  **fleet_kw):
+    """A warmed one-bucket service over a FleetEngine on cuda:0 slots, at
+    the default menu and flush."""
+    import torch
+
+    from can_tpu_torch.serve import CountService, FleetEngine
+
+    fleet = FleetEngine(sd, replicas=replicas, serve_dtype=serve_dtype,
+                        devices=[torch.device("cuda", 0)] * FLEET_SLOTS,
+                        telemetry=telemetry, **fleet_kw)
+    h, w = FLEET_BUCKET
+    svc = CountService(fleet, max_batch=MAX_BATCH, queue_capacity=256,
+                       bucket_ladder=((h,), (w,)),
+                       default_deadline_ms=120_000)
+    svc.warmup([(h, w)])
+    return fleet, svc
+
+
+def release_fleet(fleet) -> None:
+    """Every replica's weights off the card before the next fleet."""
+    for r in fleet.replicas:
+        r.engine.release_buffers()
+
+
+def fleet_burst(svc, images, n: int) -> dict:
+    """n requests submitted back to back; every one must resolve."""
+    from can_tpu_torch.serve import RejectedError
+
+    t0 = time.perf_counter()
+    tickets = [svc.submit(images[i % len(images)]) for i in range(n)]
+    submit_ms = (time.perf_counter() - t0) * 1e3
+    try:
+        results = [t.result(timeout=300) for t in tickets]
+    except RejectedError as e:
+        fail(f"[fleet] a burst request was rejected: {e}")
+    wall = time.perf_counter() - t0
+    lat = sorted(r.latency_s for r in results)
+    return {"results": results, "wall": wall, "submit_ms": submit_ms,
+            "p50_ms": statistics.median(lat) * 1e3,
+            "p99_ms": float(np.percentile(lat, 99)) * 1e3}
+
+
+def lone_batch(x):
+    from can_tpu_torch.data import pad_batch
+
+    h, w = x.shape[:2]
+    return pad_batch([(x, np.zeros((h // 8, w // 8, 1), np.float32))],
+                     (h, w), 1, [True], 8)
+
+
+def single_engine_counts(sd, serve_dtype: str, images) -> list:
+    """What one ServeEngine serves for each image as a lone request."""
+    from can_tpu_torch.serve import ServeEngine
+
+    eng = ServeEngine(sd, device="cuda", serve_dtype=serve_dtype,
+                      name="reference")
+    out = [float(eng.predict_batch(lone_batch(x))[0][0]) for x in images]
+    eng.release_buffers()
+    return out
+
+
+def fleet_cli_refusal(pth: Path) -> None:
+    """Gate 1: the CLI refuses --replicas 2 by the card count before any
+    weights load."""
+    import torch
+
+    n = torch.cuda.device_count()
+    if n >= 2:
+        log(f"[fleet] CLI --replicas 2 on {n} cards: not a refusal case here")
+        return
+    proc = subprocess.run(
+        [sys.executable, "-m", "can_tpu_torch.cli.serve", "--torch-pth",
+         str(pth), "--replicas", "2"], cwd=ROOT, capture_output=True,
+        text=True, timeout=300)
+    want = "replicas=2 exceeds the 1 available devices"
+    if proc.returncode == 0 or want not in proc.stderr + proc.stdout \
+            or "[load]" in proc.stdout:
+        fail(f"[fleet] python -m can_tpu_torch.cli.serve --replicas 2 on one "
+             f"card: exit {proc.returncode}, stdout {proc.stdout[-300:]!r}, "
+             f"stderr {proc.stderr[-300:]!r}")
+    log(f"[fleet] CLI --replicas 2 on 1 card: exit {proc.returncode} before "
+        f"any weights load: {proc.stderr.strip().splitlines()[-1][:100]}...")
+
+
+def fleet_clean(sd, serve_dtype: str, images, refs, replicas: int = 2,
+                count=None) -> dict:
+    """Gate 2 (2 replicas) and the report's 1-replica arm: a clean burst;
+    every request completes, no replica quarantines, no new signature,
+    counts equal a single engine's, and the context kernel launched once
+    per predict the fleet ran (warmups and batches).  Before the burst a
+    lone request is steered to each replica in turn (the others' dispatch
+    locks held), so every replica serves whatever split the burst takes."""
+    from can_tpu_torch.ops import cuda_context as cc
+    from can_tpu_torch.testing import serve_on
+
+    cc.reset_launches()  # this fleet's window starts here
+    c0 = count.n
+    tel = Events()
+    fleet, svc = fleet_service(sd, serve_dtype, tel, replicas=replicas)
+    warm = [r.engine.compile_count for r in fleet.replicas]
+    with svc:
+        steered = [] if replicas < 2 else [
+            res for r in range(replicas)
+            for res in serve_on(fleet, svc, r, images[0], timeout_s=120)]
+        since = len(tel.events)
+        b = fleet_burst(svc, images, FLEET_BURST)
+    launches, calls = cc.LAUNCHES, count.n - c0
+    st = svc.stats()
+    tag = f"[fleet] clean {serve_dtype} x {replicas}"
+    if st["completed"] != FLEET_BURST + len(steered) or st["rejected"]:
+        fail(f"{tag}: {st['completed']} completed of "
+             f"{FLEET_BURST + len(steered)}, {st['rejected']} rejected")
+    rows = fleet.healthz()["replicas"]
+    if any(r["state"] != "active" or r["failures"] for r in rows):
+        fail(f"{tag}: replicas {rows} (a kernel fault quarantines a replica)")
+    if [r.engine.compile_count for r in fleet.replicas] != warm:
+        fail(f"{tag}: traffic ran new signatures "
+             f"{[r.engine.compile_count for r in fleet.replicas]} vs {warm}")
+    per = {k: v["batches"] for k, v in st["replicas"].items()}
+    if min(per.values()) < 1:
+        fail(f"{tag}: a replica served no batch: {per}")
+    if not launches == calls == sum(warm) + st["batches"]:
+        fail(f"{tag}: context_fused launched {launches} times for {calls} "
+             f"predicts ({sum(warm)} warmup + {st['batches']} batches)")
+    worst = 0.0
+    for r, want in ([(r, refs[i % len(refs)])
+                     for i, r in enumerate(b["results"])]
+                    + [(r, refs[0]) for r in steered]):
+        if not np.isfinite(r.count):
+            fail(f"{tag}: non-finite count")
+        worst = max(worst, abs(r.count - want) / abs(want))
+    if worst > FLEET_RTOL[serve_dtype]:
+        fail(f"{tag}: served count vs a single engine rel {worst:.2e} > "
+             f"{FLEET_RTOL[serve_dtype]}")
+    # why the burst splits as it does: the batcher's one thread assembles
+    # (and stages) each batch, the replicas launch it
+    asm = [p["assembly_s"] for p in tel.of("serve.request", since)]
+    exe = [p["execute_s"] for p in tel.of("serve.batch", since)]
+    release_fleet(fleet)
+    return {**b, "batches": per, "launches": launches, "worst": worst,
+            "warm": warm, "steered": len(steered),
+            "burst_batches": [p.get("replica", 0)
+                              for p in tel.of("serve.batch", since)],
+            "assembly_ms": statistics.median(asm) * 1e3,
+            "execute_ms": statistics.median(exe) * 1e3}
+
+
+def fleet_crash(sd, images, count) -> int:
+    """Gate 3: replica_crash (replica 0, batch 2) through CAN_TPU_FAULTS:
+    the batch is redispatched once, no request is lost, the replica's
+    weights leave the card at quarantine, and after the cooldown it
+    resurrects at the current generation."""
+    import torch
+
+    from can_tpu_torch.ops import cuda_context as cc
+    from can_tpu_torch.serve import param_bytes
+    from can_tpu_torch.testing import faults
+
+    os.environ[faults.FAULTS_ENV] = json.dumps({"faults": [
+        {"kind": "replica_crash", "replica": 0, "batch": 2}]})
+    faults._CACHED = faults._CACHED_SPEC = None
+    try:
+        cc.reset_launches()  # this fleet's window starts here
+        c0 = count.n
+        tel = Events()
+        fleet, svc = fleet_service(sd, "f32", tel,
+                                   probe_cooldown_s=FLEET_COOLDOWN_S,
+                                   maintain_interval_s=0.05)
+        rep0 = fleet.replicas[0]
+        pbytes = param_bytes(rep0.engine.params)
+        release, freed = rep0.engine.release_buffers, {}
+
+        def measured():
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated(0)
+            release()
+            freed["bytes"] = before - torch.cuda.memory_allocated(0)
+
+        rep0.engine.release_buffers = measured
+        inj = faults.active_injector()
+        with svc:
+            # one request at a time until the fault fires: the survivor is
+            # idle at the quarantine, so the memory reading is the release's
+            serial = 0
+            while not inj.fired and serial < 20:
+                if not np.isfinite(svc.predict(images[serial % len(images)],
+                                               timeout=300).count):
+                    fail("[fleet] crash: non-finite count")
+                serial += 1
+            if not inj.fired:
+                fail("[fleet] crash: replica 0 never ran its second batch")
+            fleet_burst(svc, images, 16)
+            t0 = time.perf_counter()
+            while fleet.live_replicas() < 2 and time.perf_counter() - t0 < 30:
+                time.sleep(0.05)
+            heal_s = time.perf_counter() - t0
+            fleet_burst(svc, images, 16)  # through the healed fleet
+        st = svc.stats()
+        launches, calls = cc.LAUNCHES, count.n - c0
+        quar = [p for p in tel.of("fleet.replica")
+                if p["state"] == "quarantined"]
+        res = tel.of("fleet.resurrect")
+        valid = sum(b["valid"] for b in tel.of("serve.batch"))
+        if st["rejected"] or st["completed"] != serial + 32 \
+                or valid != st["completed"]:
+            fail(f"[fleet] crash: {st['completed']} completed of "
+                 f"{serial + 32}, {st['rejected']} rejected, {valid} "
+                 f"launched: a request was lost or served twice")
+        if len(quar) != 1 or quar[0]["replica"] != 0 or len(res) != 1 \
+                or res[0]["generation"] != fleet.generation \
+                or fleet.replicas[0].engine.name != "serve_predict_r0i1" \
+                or fleet.live_replicas() != 2:
+            fail(f"[fleet] crash: quarantines {quar}, resurrections {res}, "
+                 f"live {fleet.live_replicas()}")
+        if freed.get("bytes", 0) < pbytes:
+            fail(f"[fleet] crash: quarantine freed {freed.get('bytes')} bytes "
+                 f"of device memory, the replica holds {pbytes} parameter "
+                 f"bytes")
+        if launches != calls:
+            fail(f"[fleet] crash: {launches} context launches for {calls} "
+                 f"predicts")
+        log(f"[fleet] crash: replica_crash at replica 0's batch 2 (request "
+            f"{serial}): quarantined, its batch redispatched once and served "
+            f"by replica 1, {st['completed']} requests completed, 0 lost or "
+            f"rejected; memory_allocated fell {freed['bytes']} bytes at the "
+            f"quarantine (replica parameter bytes {pbytes}); resurrected as "
+            f"{fleet.replicas[0].engine.name} at generation "
+            f"{res[0]['generation']} in {res[0]['seconds']} s "
+            f"({res[0]['warmup_compiles']} new signatures), live 2 again "
+            f"{heal_s:.2f} s after the burst")
+        release_fleet(fleet)
+        return launches
+    finally:
+        del os.environ[faults.FAULTS_ENV]
+        faults._CACHED = faults._CACHED_SPEC = None
+
+
+def fleet_hang(sd, images, count) -> int:
+    """Gate 4: replica_hang (replica 1, FLEET_HANG_S) with a 0.5 s
+    watchdog: the replica is wedged and its batch completes on the
+    survivor within the deadline + 1 s; nothing is lost."""
+    from can_tpu_torch.ops import cuda_context as cc
+    from can_tpu_torch.testing import faults
+
+    os.environ[faults.FAULTS_ENV] = json.dumps({"faults": [
+        {"kind": "replica_hang", "replica": 1, "batch": 1,
+         "delay_s": FLEET_HANG_S}]})
+    faults._CACHED = faults._CACHED_SPEC = None
+    try:
+        cc.reset_launches()  # this fleet's window starts here
+        c0 = count.n
+        tel = Events()
+        fleet, svc = fleet_service(sd, "f32", tel,
+                                   watchdog_default_s=FLEET_WATCHDOG_S,
+                                   maintain_interval_s=0.05)
+        inj = faults.active_injector()
+        with svc:
+            serial, hung = 0, None
+            while hung is None and serial < 20:
+                res = svc.predict(images[serial % len(images)], timeout=300)
+                serial += 1
+                if inj.fired:
+                    hung = res  # one request per batch: the hung one
+            if hung is None:
+                fail("[fleet] hang: replica 1 never ran a batch")
+            fleet_burst(svc, images, 16)
+            t_close = time.perf_counter()
+        close_s = time.perf_counter() - t_close
+        st = svc.stats()
+        launches, calls = cc.LAUNCHES, count.n - c0
+        rows = {r["replica"]: r for r in fleet.healthz()["replicas"]}
+        wedge = [p for p in tel.of("fleet.replica") if p["state"] == "wedged"]
+        if rows[1]["state"] != "wedged" or len(wedge) != 1 \
+                or rows[0]["state"] != "active":
+            fail(f"[fleet] hang: replicas {rows}, wedge events {wedge}")
+        if hung.latency_s > FLEET_WATCHDOG_S + 1.0:
+            fail(f"[fleet] hang: the hung batch resolved after "
+                 f"{hung.latency_s:.3f} s (deadline {FLEET_WATCHDOG_S} + 1 s)")
+        if st["rejected"] or st["completed"] != serial + 16:
+            fail(f"[fleet] hang: {st['completed']} of {serial + 16} "
+                 f"completed, {st['rejected']} rejected")
+        if launches != calls:
+            fail(f"[fleet] hang: {launches} context launches for {calls} "
+                 f"predicts")
+        log(f"[fleet] hang: replica_hang {FLEET_HANG_S} s at replica 1's "
+            f"first batch, watchdog {FLEET_WATCHDOG_S} s: replica 1 wedged, "
+            f"the hung request served by replica 0 {hung.latency_s:.3f} s "
+            f"after submit (limit {FLEET_WATCHDOG_S + 1.0}); "
+            f"{st['completed']} completed, 0 lost; close waited "
+            f"{close_s:.2f} s for the abandoned thread's sleep to end")
+        release_fleet(fleet)
+        return launches
+    finally:
+        del os.environ[faults.FAULTS_ENV]
+        faults._CACHED = faults._CACHED_SPEC = None
+
+
+def steady_stream(svc, images, threads: int = 2):
+    """Closed-loop clients until the returned stop() is called; stop()
+    returns (requests answered, errors)."""
+    stop, done, errors = threading.Event(), [0], []
+
+    def client(k):
+        i = k
+        while not stop.is_set():
+            try:
+                svc.predict(images[i % len(images)], timeout=300)
+                done[0] += 1
+            except Exception as e:  # noqa: BLE001 — the gate reads them
+                errors.append(repr(e))
+            i += threads
+
+    ts = [threading.Thread(target=client, args=(k,)) for k in range(threads)]
+    for t in ts:
+        t.start()
+
+    def halt():
+        stop.set()
+        for t in ts:
+            t.join(timeout=300)
+        if any(t.is_alive() for t in ts):
+            fail("[fleet] a client thread did not stop")
+        return done[0], errors
+
+    return halt
+
+
+def fleet_rollout(sd, sd2, serve_dtype: str, images, count) -> int:
+    """Gate 5: rollout under a steady stream: zero rejects, generation 1 on
+    every live replica, no new signature, and lone requests after the flip
+    served bitwise as a fresh engine on the new weights serves them."""
+    from can_tpu_torch.ops import cuda_context as cc
+
+    cc.reset_launches()  # this fleet's window starts here
+    c0 = count.n
+    fleet, svc = fleet_service(sd, serve_dtype)
+    warm = [r.engine.compile_count for r in fleet.replicas]
+    with svc:
+        halt = steady_stream(svc, images)
+        time.sleep(0.3)
+        rep = fleet.rollout(sd2)
+        time.sleep(0.3)
+        answered, errors = halt()
+        after = [svc.predict(x, timeout=300).count for x in images[:3]]
+    launches, calls = cc.LAUNCHES, count.n - c0
+    st = svc.stats()
+    tag = f"[fleet] rollout {serve_dtype}"
+    if errors or st["rejected"]:
+        fail(f"{tag}: {st['rejected']} rejected, errors {errors[:3]}")
+    if rep["flipped"] != [0, 1] or any(r.generation != 1
+                                       for r in fleet.replicas):
+        fail(f"{tag}: report {rep}")
+    if [r.engine.compile_count for r in fleet.replicas] != warm:
+        fail(f"{tag}: new signatures after the flip")
+    if launches != calls:
+        fail(f"{tag}: {launches} context launches for {calls} predicts")
+    want = single_engine_counts(sd2, serve_dtype, images[:3])
+    if after != want:
+        fail(f"{tag}: counts after the flip {after} != a fresh engine's "
+             f"{want}")
+    log(f"{tag} under {answered} steady requests: generation 1 on replicas "
+        f"{rep['flipped']}, 0 rejected, no new signature, staging "
+        f"{rep['staging_compiles']} signatures in {rep['staging_seconds']} s, "
+        f"rollout {rep['seconds']} s; lone requests after the flip bitwise "
+        f"equal to a fresh engine on the new weights")
+    release_fleet(fleet)
+    return launches
+
+
+def first_launch_ms(sd, menu) -> str:
+    """A fresh engine's first launch of each menu signature against its
+    steady state, in this warm process (the cost a replica's warmup
+    pays)."""
+    import torch
+
+    from can_tpu_torch.data import pad_batch
+    from can_tpu_torch.serve import ServeEngine
+
+    h, w = FLEET_BUCKET
+    eng = ServeEngine(sd, device="cuda", name="reference")
+    rows = []
+    for size in menu:
+        x = np.zeros((h, w, 3), np.float32)
+        batch = pad_batch([(x, np.zeros((h // 8, w // 8, 1), np.float32))],
+                          (h, w), size, [False], 8)
+        times = []
+        for _ in range(6):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eng.predict_batch(batch)
+            times.append((time.perf_counter() - t0) * 1e3)
+        rows.append(f"b{size} {times[0]:.1f} vs {statistics.median(times[1:]):.1f}")
+    eng.release_buffers()
+    return ", ".join(rows)
+
+
+def fleet_scale(sd, images, count) -> int:
+    """Gate 6: add_replica then remove_replica under traffic, zero drops;
+    the new replica serves (work steered to it, the others' dispatch locks
+    held) before it is the one drained; the scale-up's time to ready and
+    new signatures (what a counterpart of the JAX AOT bundle must beat)."""
+    from can_tpu_torch.ops import cuda_context as cc
+    from can_tpu_torch.testing import serve_on
+
+    cc.reset_launches()  # this fleet's window starts here
+    c0 = count.n
+    tel = Events()
+    fleet, svc = fleet_service(sd, "f32", tel)
+    with svc:
+        halt = steady_stream(svc, images, threads=6)
+        time.sleep(0.3)
+        up = fleet.add_replica(reason="smoke")
+        live_up = fleet.live_replicas()
+        steered = serve_on(fleet, svc, up["replica"], images[0],
+                           timeout_s=120)
+        # the stats rows list current replicas only: read it before the drain
+        new = svc.stats()["replicas"][str(up["replica"])]["batches"]
+        time.sleep(0.3)
+        down = fleet.remove_replica(reason="smoke")
+        time.sleep(0.3)
+        answered, errors = halt()
+    launches, calls = cc.LAUNCHES, count.n - c0
+    st = svc.stats()
+    if errors or st["rejected"] or live_up != 3 or \
+            fleet.live_replicas() != 2 or \
+            st["completed"] != answered + len(steered):
+        fail(f"[fleet] scale: live {live_up} -> {fleet.live_replicas()}, "
+             f"{st['completed']} completed of {answered + len(steered)}, "
+             f"{st['rejected']} rejected, errors {errors[:3]}")
+    if launches != calls:
+        fail(f"[fleet] scale: {launches} context launches for {calls} "
+             f"predicts")
+    if new < 1 or down["replica"] != up["replica"]:
+        fail(f"[fleet] scale: the added replica {up['replica']} served {new} "
+             f"batches; remove_replica drained replica {down['replica']}")
+    log(f"[fleet] scale: add_replica on slot 2 (cuda:0) under traffic: "
+        f"time_to_first_ready_s {up['time_to_first_ready_s']}, "
+        f"warmup_compiles {up['warmup_compiles']}, aot_hits "
+        f"{up['aot_hits']}; it served {new} batches ({len(steered)} lone "
+        f"requests steered to it); remove_replica drained it; "
+        f"{answered + len(steered)} requests, 0 dropped")
+    log(f"[fleet] first launch vs steady state (ms) of a fresh f32 engine's "
+        f"signatures at {FLEET_BUCKET[0]}x{FLEET_BUCKET[1]} in a warm "
+        f"process: {first_launch_ms(sd, svc.sched.menu)}")
+    release_fleet(fleet)
+    return launches
+
+
+def fleet_autoscale(sd, images, count) -> int:
+    """Gate 7: an Autoscaler (max 3) scales up on a burst and down on idle,
+    with zero drops; the replica it added serves (work steered to it, in
+    the cooldown after the scale-up) before it is the one drained."""
+    from can_tpu_torch.ops import cuda_context as cc
+    from can_tpu_torch.serve import Autoscaler, AutoscalePolicy
+    from can_tpu_torch.testing import serve_on
+
+    cc.reset_launches()  # this fleet's window starts here
+    c0 = count.n
+    tel = Events()
+    fleet, svc = fleet_service(sd, "f32", tel)
+    svc.autoscaler = Autoscaler(svc, AutoscalePolicy(
+        min_replicas=2, max_replicas=FLEET_SLOTS, queue_high=4.0,
+        queue_low=1.0, up_consecutive=1, down_consecutive=3,
+        cooldown_s=FLEET_AUTOSCALE_COOLDOWN_S, interval_s=0.05))
+    submitted, added = 0, None
+    with svc:
+        t0 = time.perf_counter()
+        while not tel.of("fleet.scale") and time.perf_counter() - t0 < 30:
+            fleet_burst(svc, images, FLEET_BURST)
+            submitted += FLEET_BURST
+        ups = tel.of("fleet.scale")
+        if ups and ups[0]["direction"] == "up":
+            added = next((r for r in fleet.replicas
+                          if r.index == ups[0]["replica"]), None)
+            if added is None:
+                fail("[fleet] autoscale: the added replica was drained "
+                     "before work was steered to it")
+            submitted += len(serve_on(fleet, svc, added.index, images[0],
+                                      timeout_s=120))
+        t1 = time.perf_counter()
+        while len(tel.of("fleet.scale")) < 2 and time.perf_counter() - t1 < 30:
+            time.sleep(0.05)
+        idle_s = time.perf_counter() - t1
+    launches, calls = cc.LAUNCHES, count.n - c0
+    st = svc.stats()
+    scale = tel.of("fleet.scale")
+    moves = [(p["direction"], p["live"]) for p in scale]
+    new = 0 if added is None else added.batches
+    if moves != [("up", 3), ("down", 2)] or st["rejected"] \
+            or st["completed"] != submitted:
+        fail(f"[fleet] autoscale: moves {moves}, {st['completed']} of "
+             f"{submitted} completed, {st['rejected']} rejected")
+    if new < 1 or scale[1]["replica"] != added.index:
+        fail(f"[fleet] autoscale: the added replica {added.index} served "
+             f"{new} batches; the scale-down drained replica "
+             f"{scale[1]['replica']}")
+    if launches != calls:
+        fail(f"[fleet] autoscale: {launches} context launches for {calls} "
+             f"predicts")
+    log(f"[fleet] autoscale (max 3): {moves[0]} under bursts of "
+        f"{FLEET_BURST} ({submitted} requests), the added replica served "
+        f"{new} batches, {moves[1]} {idle_s:.2f} s into idle, draining it; "
+        f"0 dropped")
+    release_fleet(fleet)
+    return launches
+
+
+def phase_fleet(pth: Path, card: str) -> dict:
+    """The fleet path on the card (gates 1-7; the 1- against 2-replica
+    burst reported); returns the context launches the fleets made."""
+    import torch
+
+    from can_tpu_torch.models import random_state_dict
+    from can_tpu_torch.serve import prepare_image
+    from can_tpu_torch.utils.torch_import import load_torch_checkpoint
+
+    t_phase = time.perf_counter()
+    fleet_cli_refusal(pth)
+    sd = load_torch_checkpoint(str(pth))
+    sd2 = {k: torch.from_numpy(v)
+           for k, v in random_state_dict(SEED + 7, he=True).items()}
+    h, w = FLEET_BUCKET
+    rng = np.random.default_rng(SEED + 9)
+    images = [prepare_image(rng.integers(0, 256, (h, w, 3), dtype=np.uint8))
+              for _ in range(8)]
+    count = PredictCount()
+    total, report = 0, []
+    try:
+        for dt in ("f32", "bf16"):
+            refs = single_engine_counts(sd, dt, images)
+            arms = {k: fleet_clean(sd, dt, images, refs, k, count)
+                    for k in (1, 2)}
+            total += sum(a["launches"] for a in arms.values())
+            two = arms[2]
+            log(f"[fleet] clean {dt}: {FLEET_BURST} requests over 2 replicas "
+                f"on cuda:0 after {two['steered']} steered to each replica "
+                f"in turn, batches by replica {two['batches']} (the burst's "
+                f"in order: {two['burst_batches']}; submitted in "
+                f"{two['submit_ms']:.1f} ms, median batch assembly "
+                f"{two['assembly_ms']:.1f} ms on the batcher thread vs "
+                f"execute {two['execute_ms']:.1f} ms), 0 rejected, "
+                f"every replica active with 0 failures, warmup signatures "
+                f"{two['warm']} unchanged by traffic; counts vs a single "
+                f"engine worst rel {two['worst']:.2e} (limit "
+                f"{FLEET_RTOL[dt]}); context_fused launches {two['launches']}"
+                f" = the fleet's predicts (warmups + batches)")
+            report.append(", ".join(
+                f"{dt} {k} replica{'s' if k > 1 else ''} p50 "
+                f"{a['p50_ms']:.1f} / p99 {a['p99_ms']:.1f} ms, "
+                f"{FLEET_BURST / a['wall']:.1f} images/s"
+                for k, a in arms.items()))
+        total += fleet_crash(sd, images, count)
+        total += fleet_hang(sd, images, count)
+        for dt in ("f32", "bf16"):
+            total += fleet_rollout(sd, sd2, dt, images, count)
+        total += fleet_scale(sd, images, count)
+        total += fleet_autoscale(sd, images, count)
+    finally:
+        count.close()
+    log(f"[fleet] burst of {FLEET_BURST} at {h}x{w} (reported, not gated; the "
+        f"replicas time-slice one card, {card}: these times say nothing of "
+        f"two GPUs): " + "; ".join(report))
+    log(f"[fleet] context_fused launches on the fleet path: {total}, each one "
+        f"a predict of a fleet engine (warmups, batches, probes, staging, "
+        f"scale-ups); phase {time.perf_counter() - t_phase:.1f} s")
+    return {"bn": 0, "bn_backward": 0, "context": total}
 
 
 def _bn_mask(b: int, h: int, w: int, device) -> "torch.Tensor":
@@ -3233,7 +3872,8 @@ def main(argv) -> int:
     del runs, swap
 
     # each phase resets and reads the counts around each path it drives
-    paths = {"determinism": phase_determinism(work),
+    paths = {"fleet": phase_fleet(pth, card),
+             "determinism": phase_determinism(work),
              "train": phase_train(work), "remat": phase_remat(work),
              "s2d": phase_s2d(work), "vgg16": phase_vgg16(work),
              "slice5": phase_slice5(work), "legacy": phase_legacy(work),

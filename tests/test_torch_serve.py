@@ -727,17 +727,23 @@ def test_cli_validation_messages_equal_jax(tmp_path, argv):
     assert str(got.value) == str(want.value) and str(got.value)
 
 
-@pytest.mark.parametrize("argv", [["--replicas", "2"],
-                                  ["--replicas", "4", "--aot-bake", "/tmp/x",
-                                   "--autoscale-max", "6"]])
-def test_replicas_refused_naming_item_3b(tmp_path, argv):
+@pytest.mark.parametrize("argv,match", [
+    # the fleet is ported: on the CPU its universe is the one CPU, so two
+    # replicas are refused by the device count, before any weights load
+    pytest.param(["--replicas", "2"],
+                 "replicas=2 exceeds the 1 available devices", id="argv0"),
+    # AOT bundles are not: refused naming their ROADMAP item
+    pytest.param(["--replicas", "4", "--aot-bake", "/tmp/x",
+                  "--autoscale-max", "6"], "ROADMAP Queue 1 item 3c",
+                 id="argv1")])
+def test_replicas_refused_naming_item_3b(tmp_path, argv, match):
     pth = tmp_path / "a.pth"
     pth.write_bytes(b"")
     args = cli.parse_args(["--torch-pth", str(pth), "--platform", "cpu"]
                           + argv)
     with pytest.raises(SystemExit) as e:
         cli.build_service(args)
-    assert "ROADMAP Queue 1 item 3b" in str(e.value)
+    assert match in str(e.value)
 
 
 def test_cli_defaults_equal_jax():
