@@ -1,6 +1,7 @@
 """Shared CLI plumbing: dataset roots, the prepared-store flag, the world
-and each process's batch, the planner's memory cap and launch price
-(counterpart of ``can_tpu/cli/common.py:15-140, 359-564``).
+and each replica's batch, the spatial shards' padding and step caches, the
+planner's memory cap and launch price (counterpart of
+``can_tpu/cli/common.py:15-140, 359-564, 613-645``).
 
 The planner prices launches in pixels.  Its two device numbers are the
 card's own, measured by ``chip_smoke.py``'s ``[planner]`` phase on an
@@ -21,7 +22,7 @@ import argparse
 import os
 import statistics
 import time
-from typing import Callable, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -75,6 +76,30 @@ def parse_pad_multiple(value):
             f"got {value!r}") from None
 
 
+def resolve_sp_padding(pad_multiple, sp: int):
+    """Bucket constraints under spatial parallelism, shared by both CLIs
+    (``resolve_sp_padding`` of can_tpu/cli/common.py:33): returns
+    ``(pad_multiple, min_pad_multiple, min_bucket_h)``.  Only the sharded
+    H axis carries sp constraints; W keeps the cheaper /8 snap:
+
+    * bucket H must be a multiple of 8*sp so max-pool windows never
+      straddle shard boundaries (``parallel.spatial._check_spatial_shapes``);
+    * bucket H must be >= 16*sp so each shard owns >= 2 feature rows (the
+      dilated-conv halo): short images are padded up instead of failing
+      the step mid-run.
+    """
+    if sp <= 1:
+        return pad_multiple, None, None
+    need = 8 * sp
+    if pad_multiple is None:  # exact shapes can't guarantee divisibility
+        pad_multiple = (need, 8)
+    elif isinstance(pad_multiple, int):
+        mh = pad_multiple if pad_multiple % need == 0 else (
+            -(-pad_multiple // need) * need)
+        pad_multiple = (mh, pad_multiple)
+    return pad_multiple, (need, None), 16 * sp
+
+
 def dataset_roots(data_root: str, split: str) -> Tuple[str, str]:
     """ShanghaiTech layout: <root>/<split>_data/images and .../ground_truth."""
     base = os.path.join(data_root, f"{split}_data")
@@ -122,18 +147,19 @@ def split_prepared_spec(spec: str, split: str) -> str:
 
 
 def build_mesh_and_batch(batch_size: int, sp: int = 1) -> Tuple:
-    """The world as a mesh, and each process's batch: ``(mesh,
-    per_process_batch, dp)``.  ``batch_size`` is per data-parallel replica
-    (the reference's per-GPU batch, train.py:177); the global batch is
-    ``batch_size * dp``.  ``sp > 1`` raises (``parallel.mesh``)."""
-    mesh = make_mesh(sp=sp)
-    dp = mesh.dp
-    global_batch = batch_size * dp
+    """The world as a (dp, sp) mesh with ``dp = processes / sp``, and each
+    replica's batch: ``(mesh, per_replica_batch, dp)``.  ``batch_size`` is
+    per data-parallel replica (the reference's per-GPU batch,
+    train.py:177); the global batch is ``batch_size * dp``.  The ``sp``
+    ranks of a replica load the same slice of each launch (the batcher's
+    ``process_index = mesh.d`` of ``process_count = dp``) and each keeps
+    its rows of it (``parallel.make_global_batch(..., spatial=True)``).
+    Collective under ``sp > 1`` (``parallel.make_mesh``)."""
     nproc = process_count()
-    if global_batch % nproc:
-        raise ValueError(f"global batch {global_batch} not divisible by "
-                         f"process count {nproc}")
-    return mesh, global_batch // nproc, dp
+    if sp < 1 or nproc % sp:
+        raise ValueError(f"--sp {sp} does not divide the process count {nproc}")
+    mesh = make_mesh(dp=nproc // sp, sp=sp)
+    return mesh, batch_size, mesh.dp
 
 
 def agreed_device_memory_bytes(device) -> Optional[int]:
@@ -227,6 +253,63 @@ def make_remat_policy(flag: str, *, global_batch: int, bf16: bool, device=None,
         return on
 
     return policy
+
+
+class SpatialStepCache:
+    """Per-key cache of spatial steps (``SpatialStepCache`` of
+    can_tpu/cli/common.py:613): each H x W bucket shape (and, for the
+    train step, remat flag) gets its own step, whose ``LocalOps`` hold
+    the shape's pooling extent and context rows."""
+
+    def __init__(self, factory: Callable):
+        self._factory = factory
+        self._steps: Dict[tuple, Callable] = {}
+
+    def __call__(self, key):
+        step = self._steps.get(key)
+        if step is None:
+            step = self._steps[key] = self._factory(key)
+        return step
+
+
+def block_image_hw(batch, sp: int) -> Tuple[int, int]:
+    """The whole image's (H, W) of a rank's H-block."""
+    return batch["image"].shape[1] * sp, batch["image"].shape[2]
+
+
+def make_cached_sp_eval_step(mesh, *, compute_dtype=None) -> Callable:
+    """Bucket-shape-cached spatial eval step, shared by both CLIs
+    (``make_cached_sp_eval_step`` of can_tpu/cli/common.py:628):
+    ``eval_step(model, block) -> global metric sums``."""
+    from can_tpu_torch.parallel.spatial import make_sp_eval_step
+
+    cache = SpatialStepCache(
+        lambda hw: make_sp_eval_step(mesh, hw, compute_dtype=compute_dtype))
+
+    def eval_step(model, batch):
+        return cache(block_image_hw(batch, mesh.sp))(model, batch)
+
+    return eval_step
+
+
+def make_cached_sp_train_step(model, mesh, *, policy: Callable,
+                              compute_dtype=None, bn_ops=None) -> Callable:
+    """The train CLI's spatial step: one ``make_sp_train_step`` per
+    (bucket shape, remat), remat decided per launch by ``policy(hw,
+    batch=global launch)`` (``make_remat_policy`` with ``shards = dp *
+    sp``)."""
+    from can_tpu_torch.parallel.spatial import make_sp_train_step
+
+    cache = SpatialStepCache(lambda key: make_sp_train_step(
+        model, mesh, key[0], compute_dtype=compute_dtype, bn_ops=bn_ops,
+        remat=key[1]))
+
+    def train_step(state, batch):
+        hw = block_image_hw(batch, mesh.sp)
+        remat = bool(policy(hw, batch=batch["image"].shape[0] * mesh.dp))
+        return cache((hw, remat))(state, batch)
+
+    return train_step
 
 
 def measure_launch_cost_mpx(device, *, probes: int = 30,

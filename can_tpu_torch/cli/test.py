@@ -16,15 +16,20 @@ explicit CPU run.  Under a launcher (``torchrun --nproc_per_node=N -m
 can_tpu_torch.cli.test ...``; ``parallel/runtime.py``) each process
 evaluates its slice of every launch (launch sizes are multiples of the
 process count) and the sums are global: the same MAE/MSE as one
-process; ``--show-index`` writes its PNGs on rank 0 only.  Spatial
-parallelism (``--sp``) and the telemetry, trace, incident and SLO flags
-come with later slices (ROADMAP Queue 1).
+process; ``--show-index`` writes its PNGs on rank 0 only.  ``--sp K``
+splits each image's height over K processes (``parallel/spatial.py``):
+bucket H is padded to multiples of 8*K (exact shapes cannot shard), the
+per-image counts are summed over a replica's shards before ``|et -
+gt|``, and ``--show-index`` runs the H-sharded forward on the first
+replica's K ranks, the image's H padded to ``max(ceil(h / 8K) * 8K,
+16K)`` and the map cropped back.  The telemetry, trace, incident and
+SLO flags come with later slices (ROADMAP Queue 1).
 """
 
 from __future__ import annotations
 
 import argparse
-import math
+import dataclasses
 import os
 import time
 from typing import Optional
@@ -72,8 +77,8 @@ def parse_args(argv=None):
     p.add_argument("--batch-size", type=int, default=1,
                    help="images per process per launch")
     p.add_argument("--sp", type=int, default=1,
-                   help="spatial (image-height) shards: only 1 on this port "
-                        "for now")
+                   help="spatial (image-height) shards per replica: each "
+                        "image's rows split over this many processes")
     p.add_argument("--pad-multiple", type=parse_pad_multiple, default="exact",
                    help="'exact' (default): no padding, the reference's "
                         "boundary math; 'auto': the planner's buckets; or "
@@ -204,9 +209,8 @@ def evaluate_checkpoint(args, *, prefetch: Optional[int] = None) -> dict:
     roots = resolve_split_roots(args.split, args.image_root, args.gt_root,
                                 args.data_root, flag_stem="")
     validate_params_source(args)
-    if args.sp != 1:
-        raise SystemExit("--sp > 1 (spatial parallelism) is not ported yet: "
-                         "it comes with ROADMAP Queue 1 item 4")
+    if args.sp < 1:
+        raise SystemExit("--sp must be >= 1")
     if args.batch_size < 1:
         raise SystemExit("--batch-size must be >= 1")
     if args.item_cache_mb < 0:
@@ -217,6 +221,9 @@ def evaluate_checkpoint(args, *, prefetch: Optional[int] = None) -> dict:
     except NoCudaDeviceError as e:
         raise SystemExit(f"[eval] {e}") from None
     try:
+        if topo["process_count"] % args.sp:
+            raise SystemExit(f"[eval] --sp {args.sp} does not divide the "
+                             f"process count {topo['process_count']}")
         return _evaluate(args, roots, torch.device(topo["device"]), prefetch)
     finally:
         if owned:
@@ -224,16 +231,17 @@ def evaluate_checkpoint(args, *, prefetch: Optional[int] = None) -> dict:
 
 
 def _evaluate(args, roots, device, prefetch) -> dict:
-    from can_tpu_torch.cli.common import build_mesh_and_batch
+    from can_tpu_torch.cli.common import (
+        build_mesh_and_batch,
+        make_cached_sp_eval_step,
+        resolve_sp_padding,
+    )
     from can_tpu_torch.data import CrowdDataset, ItemCache, ShardedBatcher, StaleStoreError
     from can_tpu_torch.data import normalize_host
     from can_tpu_torch.data.prefetch import DevicePut
-    from can_tpu_torch.parallel import (
-        is_main_process,
-        make_dp_eval_step,
-        process_count,
-        process_index,
-    )
+    from can_tpu_torch.parallel import is_main_process, make_dp_eval_step
+    from can_tpu_torch.parallel.data_parallel import spatial_rows
+    from can_tpu_torch.parallel.spatial import make_spatial_apply
     from can_tpu_torch.train import evaluate
     from can_tpu_torch.utils.viz import save_density_visualization
 
@@ -260,13 +268,20 @@ def _evaluate(args, roots, device, prefetch) -> dict:
     if main:
         print(f"[data] prepared store: "
               f"{'on' if note['active'] else 'off (' + str(note['reason']) + ')'}")
-    # each process's slice of every launch; launch sizes split evenly
-    mesh, host_batch, dp = build_mesh_and_batch(args.batch_size)
+    # each replica's slice of every launch (its sp ranks load the same
+    # one and keep their rows); launch sizes split evenly
+    mesh, host_batch, dp = build_mesh_and_batch(args.batch_size, args.sp)
+    sp = mesh.sp
+    pad_multiple, min_pad, min_bucket_h = resolve_sp_padding(args.pad_multiple, sp)
+    if sp > 1 and main and pad_multiple != args.pad_multiple:
+        # sp changes the reported numbers' boundary math: say so
+        print(f"[data] sp={sp}: bucket H padded to multiples of {8 * sp} "
+              f"(exact shapes can't shard)")
     batcher = ShardedBatcher(
         ds, host_batch, shuffle=False, seed=args.seed,
-        process_index=process_index(), process_count=process_count(),
-        batch_quantum=math.lcm(dp, process_count()),
-        pad_multiple=args.pad_multiple, max_buckets=args.max_buckets,
+        process_index=mesh.d, process_count=dp, batch_quantum=dp,
+        pad_multiple=pad_multiple, min_pad_multiple=min_pad,
+        min_bucket_h=min_bucket_h, max_buckets=args.max_buckets,
         num_workers=resolve_num_workers(args.num_workers),
         remnant_sizes=not args.no_remnant_batches,
         launch_cost_px=resolve_launch_cost_px(args.launch_cost_mpx, device,
@@ -280,9 +295,14 @@ def _evaluate(args, roots, device, prefetch) -> dict:
                   f"--no-remnant-batches or use a smaller --batch-size")
     try:
         put = DevicePut(device)
+        if sp > 1:
+            eval_step = make_cached_sp_eval_step(mesh, compute_dtype=compute_dtype)
+            put_fn = lambda b: put(spatial_rows(b, mesh))  # noqa: E731
+        else:
+            eval_step = make_dp_eval_step(mesh, compute_dtype=compute_dtype)
+            put_fn = put
         t0 = time.perf_counter()
-        metrics = evaluate(make_dp_eval_step(mesh, compute_dtype=compute_dtype),
-                           model, batcher.epoch(0), put_fn=put,
+        metrics = evaluate(eval_step, model, batcher.epoch(0), put_fn=put_fn,
                            dataset_size=batcher.dataset_size,
                            prefetch=(put.depth_for(batcher) if prefetch is None
                                      else prefetch))
@@ -295,17 +315,33 @@ def _evaluate(args, roots, device, prefetch) -> dict:
         print(f"[result] images={metrics['num_images']} "
               f"MAE={metrics['mae']:.3f} MSE={metrics['mse']:.3f}", flush=True)
     out = dict(metrics, eval_s=eval_s, epoch=epoch, density=None, viz_paths=[])
-    if args.show_index is not None and main:
+    # under sp the first replica's ranks run the sharded forward together
+    if args.show_index is not None and (main or (sp > 1 and mesh.d == 0)):
         img, gt = ds[args.show_index]
         img = normalize_host(img)  # no-op for the f32 path
-        with torch.inference_mode():
-            et = model(torch.from_numpy(np.ascontiguousarray(img))[None].to(device),
-                       compute_dtype=compute_dtype)
-        out["density"] = et[0].float().cpu().numpy()
-        out["viz_paths"] = save_density_visualization(
-            img, gt, out["density"], args.out_dir,
-            tag=f"{args.split}_{args.show_index}")
-        print(f"[viz] wrote {out['viz_paths']}")
+        if sp > 1:
+            # the image may not fit one card (why --sp was asked for): pad
+            # H to the sp constraints, crop the density map back
+            h0, w0 = img.shape[:2]
+            need = 8 * sp
+            ph = max(-(-h0 // need) * need, 16 * sp)
+            pimg = np.zeros((ph, w0, 3), np.float32)
+            pimg[:h0] = img
+            # one image: a dp=1 x sp view of the first replica's ranks
+            viz_mesh = dataclasses.replace(mesh, dp=1, d=0, data_group=None)
+            fwd = make_spatial_apply(viz_mesh, (ph, w0),
+                                     compute_dtype=compute_dtype)
+            et = fwd(model, torch.from_numpy(pimg)[None])[:, : h0 // 8]
+        else:
+            with torch.inference_mode():
+                et = model(torch.from_numpy(np.ascontiguousarray(img))[None]
+                           .to(device), compute_dtype=compute_dtype)
+        if main:
+            out["density"] = et[0].float().cpu().numpy()
+            out["viz_paths"] = save_density_visualization(
+                img, gt, out["density"], args.out_dir,
+                tag=f"{args.split}_{args.show_index}")
+            print(f"[viz] wrote {out['viz_paths']}")
     return out
 
 

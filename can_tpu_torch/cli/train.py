@@ -36,8 +36,13 @@ batch is ``batch_size * world``), the lr scales with the world, and with
 ``--syncBN`` every BN layer takes the global batch's moments (one
 all-reduce of its packed sums).  Rank 0 logs, evaluates into the
 checkpoint directory and writes checkpoints; every rank restores from
-it.  Spatial parallelism, elastic training and telemetry come with later
-slices (ROADMAP Queue 1).
+it.  ``--sp K`` splits each image's height over K processes
+(``parallel/spatial.py``): the world is dp = processes / K replicas of K
+shards, the ranks of a replica load the same images and keep their rows
+of them, bucket H is padded to multiples of 8*K and at least 16*K, the
+step sums its gradients over the world (no DDP) and the lr scales with
+dp.  Elastic training and telemetry come with later slices (ROADMAP
+Queue 1).
 """
 
 from __future__ import annotations
@@ -45,7 +50,6 @@ from __future__ import annotations
 import argparse
 import datetime
 import itertools
-import math
 import os
 import sys
 
@@ -56,6 +60,8 @@ from can_tpu_torch.cli.common import (
     DEFAULT_LAUNCH_COST_MPX,
     agreed_device_memory_bytes,
     build_mesh_and_batch,
+    make_cached_sp_eval_step,
+    make_cached_sp_train_step,
     make_remat_policy,
     max_launch_pixels,
     parse_launch_cost,
@@ -63,6 +69,7 @@ from can_tpu_torch.cli.common import (
     print_data_line,
     resolve_launch_cost_px,
     resolve_num_workers,
+    resolve_sp_padding,
     resolve_split_roots,
     split_prepared_spec,
 )
@@ -80,6 +87,10 @@ def parse_args(argv=None):
     p.add_argument("--batch-size", type=int, default=1,
                    help="images per process (per GPU) per step; the global "
                         "batch is batch-size x processes")
+    p.add_argument("--sp", type=int, default=1,
+                   help="spatial (image-height) shards per replica: each "
+                        "image's rows split over this many processes "
+                        "(processes / sp data-parallel replicas)")
     p.add_argument("--lr", type=float, default=1e-7)
     p.add_argument("--lrf", type=float, default=1.0,
                    help="final lr fraction for a cosine decay (1.0 = constant)")
@@ -208,6 +219,11 @@ def validate(args):
                          "always evaluates)")
     if args.batch_size < 1 or args.epochs < 1:
         raise SystemExit("--batch-size and --epochs must be >= 1")
+    if args.sp < 1:
+        raise SystemExit("--sp must be >= 1")
+    if args.s2d_stem and args.sp > 1:
+        raise SystemExit("--s2d-stem is dp-path only (the sp step builds its "
+                         "own sharded apply)")
     if args.item_cache_mb < 0:
         raise SystemExit("--item-cache-mb must be >= 0")
     roots = (resolve_split_roots("train", args.train_image_root,
@@ -273,9 +289,8 @@ def _train(args, roots, topo) -> dict:
         is_main_process,
         make_dp_eval_step,
         make_dp_train_step,
-        process_count,
-        process_index,
     )
+    from can_tpu_torch.parallel.data_parallel import spatial_rows
     from can_tpu_torch.train import (
         create_train_state,
         evaluate,
@@ -300,7 +315,13 @@ def _train(args, roots, topo) -> dict:
         if not args.bf16:
             use_full_f32()
     compute_dtype = torch.bfloat16 if args.bf16 else None
-    mesh, host_batch, dp = build_mesh_and_batch(args.batch_size)
+    try:
+        mesh, host_batch, dp = build_mesh_and_batch(args.batch_size, args.sp)
+    except ValueError as e:
+        raise SystemExit(f"[train] {e}") from None
+    sp = mesh.sp
+    shards = dp * sp  # cards per launch
+    pad_multiple, min_pad, min_bucket_h = resolve_sp_padding(args.pad_multiple, sp)
     if main:
         print(f"[start] {datetime.datetime.now():%Y-%m-%d %H:%M:%S} on {device}"
               + (f" ({torch.cuda.get_device_name(device)})"
@@ -324,36 +345,41 @@ def _train(args, roots, topo) -> dict:
             f"{split}={'on' if d.prepared_note['active'] else 'off (' + str(d.prepared_note['reason']) + ')'}"
             for split, d in (("train", train_ds), ("test", test_ds))))
     num_workers = resolve_num_workers(args.num_workers)
-    # every launch splits evenly across the dp replicas and the processes;
-    # every input of the plan below is agreed across processes
-    common = dict(seed=args.seed, pad_multiple=args.pad_multiple,
+    if sp > 1 and main and pad_multiple != "auto":
+        print(f"[data] sp={sp}: padding H,W to multiples of {pad_multiple}")
+    # every launch splits evenly across the dp replicas, each replica's
+    # ranks loading the same slice (the replica index d of dp); every
+    # input of the plan below is agreed across processes
+    common = dict(seed=args.seed, pad_multiple=pad_multiple,
+                  min_pad_multiple=min_pad, min_bucket_h=min_bucket_h,
                   max_buckets=args.max_buckets, num_workers=num_workers,
                   plan_mode=args.plan_mode,
-                  process_index=process_index(), process_count=process_count(),
-                  batch_quantum=math.lcm(dp, process_count()),
+                  process_index=mesh.d, process_count=dp,
+                  batch_quantum=dp,
                   remnant_sizes=not args.no_remnant_batches,
                   launch_cost_px=resolve_launch_cost_px(args.launch_cost_mpx,
                                                         device, announce=main))
     # the memory cap per launch: cells whose full batch would not fit the
     # card run at smaller menu sizes (remnant mode only, as in JAX); it
     # counts on remat, which the policy turns on where it is needed,
-    # unless --remat off.  A launch is split across the dp cards.
+    # unless --remat off.  A launch is split across the dp x sp cards.
     hbm = agreed_device_memory_bytes(device)
     cap = (None if args.no_remnant_batches
            else max_launch_pixels(bf16=args.bf16, hbm_bytes=hbm,
                                   batch_norm=args.syncBN,
-                                  remat=args.remat != "off", shards=dp))
+                                  remat=args.remat != "off", shards=shards))
     remat_policy = make_remat_policy(args.remat, global_batch=host_batch * dp,
                                      bf16=args.bf16, hbm_bytes=hbm,
                                      batch_norm=args.syncBN, announce=main,
-                                     shards=dp)
+                                     shards=shards)
     train_batcher = ShardedBatcher(train_ds, host_batch, shuffle=True,
                                    max_launch_px=cap, **common)
     test_batcher = ShardedBatcher(test_ds, host_batch, shuffle=False,
                                   **common)
     if main:
         print(f"[data] train={len(train_ds)} test={len(test_ds)} "
-              f"batch={host_batch} per process x dp={dp} "
+              f"batch={host_batch} per process x dp={dp}"
+              + (f" x sp={sp} (rows split)" if sp > 1 else "") + " "
               f"workers={num_workers} launch cap "
               + (f"{cap / 1e6:.1f} Mpx" if cap is not None else "none"))
         print_data_line("train", train_batcher, remat_policy)
@@ -386,7 +412,7 @@ def _train(args, roots, topo) -> dict:
     bn_ops = make_bn_ops(args.bn_impl) if args.syncBN else None
     if args.syncBN and main:
         print(f"[model] BatchNorm variant, moments: {args.bn_impl}"
-              + (f", synced across {dp} processes" if dp > 1 else ""))
+              + (f", synced across {shards} processes" if shards > 1 else ""))
 
     steps_per_epoch = train_batcher.batches_per_epoch(0)
     # linear lr scaling with the world: DDP averages the gradients
@@ -424,10 +450,18 @@ def _train(args, roots, topo) -> dict:
     # after the resume check: an in-place resume reads the saved world first
     save_run_config(args.checkpoint_dir, dict(run_config(args), world_size=dp))
 
-    train_step = make_dp_train_step(model, mesh, policy=remat_policy,
-                                    compute_dtype=compute_dtype, bn_ops=bn_ops)
-    eval_step = make_dp_eval_step(mesh, compute_dtype=compute_dtype)
+    if sp > 1:
+        train_step = make_cached_sp_train_step(model, mesh, policy=remat_policy,
+                                               compute_dtype=compute_dtype,
+                                               bn_ops=bn_ops)
+        eval_step = make_cached_sp_eval_step(mesh, compute_dtype=compute_dtype)
+    else:
+        train_step = make_dp_train_step(model, mesh, policy=remat_policy,
+                                        compute_dtype=compute_dtype, bn_ops=bn_ops)
+        eval_step = make_dp_eval_step(mesh, compute_dtype=compute_dtype)
     put = DevicePut(device)
+    # under sp each rank keeps its rows of the replica's batch on the host
+    put_fn = put if sp == 1 else (lambda b: put(spatial_rows(b, mesh)))
     # priced prefetch depth (the scheduling core's): once per run, a pure
     # function of each batcher's epoch-invariant schedule
     prefetch = put.depth_for(train_batcher)
@@ -445,7 +479,7 @@ def _train(args, roots, topo) -> dict:
                 batches = itertools.islice(batches, args.max_steps_per_epoch)
             lr = state.lr()
             state, stats = train_one_epoch(train_step, state, batches,
-                                           put_fn=put, epoch=epoch,
+                                           put_fn=put_fn, epoch=epoch,
                                            prefetch=prefetch)
             row = {"epoch": epoch, "train_loss": stats.loss, "lr": lr,
                    "img_per_s": stats.img_per_s, "epoch_s": stats.seconds,
@@ -454,7 +488,7 @@ def _train(args, roots, topo) -> dict:
             summary["steps"] += stats.steps
             if (epoch + 1) % args.eval_interval == 0 or epoch == args.epochs - 1:
                 metrics = evaluate(eval_step, state.model, test_batcher.epoch(0),
-                                   put_fn=put, prefetch=eval_prefetch,
+                                   put_fn=put_fn, prefetch=eval_prefetch,
                                    dataset_size=test_batcher.dataset_size)
                 summary["eval_batches"] += metrics["batches"]
                 row.update(mae=metrics["mae"], mse=metrics["mse"])

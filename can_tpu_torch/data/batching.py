@@ -147,6 +147,13 @@ class ShardedBatcher:
     plan_mode: "cost" (default) or "legacy" (``data/planner.py``'s
       modes; legacy also scores ladders by padded area and uses the
       power-of-two menu).
+    min_pad_multiple: the auto ladder's floor multiple per axis (an int
+      or (mh, mw), None = ``ds``): spatial parallelism passes
+      (8 * sp, None) so every bucket H splits over the shards
+      (``cli.common.resolve_sp_padding``).
+    min_bucket_h: floor on every bucket's H (spatial parallelism: each
+      H-shard must hold >= 2 feature rows); callers pass a value
+      compatible with their pad multiple.
     """
 
     def __init__(self, dataset, batch_size: int, *, shuffle: bool = True,
@@ -157,7 +164,9 @@ class ShardedBatcher:
                  batch_quantum: Optional[int] = None,
                  launch_cost_px: float = 2e6,
                  max_launch_px: Optional[float] = None,
-                 plan_mode: str = "cost"):
+                 plan_mode: str = "cost",
+                 min_pad_multiple=None,
+                 min_bucket_h: Optional[int] = None):
         if int(batch_size) < 1:
             raise ValueError(f"batch_size must be >= 1, got {batch_size}")
         if plan_mode not in ("cost", "legacy"):
@@ -189,6 +198,7 @@ class ShardedBatcher:
         # O(dataset) sort and group
         self._epoch_cache: Optional[Tuple[int, list]] = None
         self._shape_cache: Dict[int, Tuple[int, int]] = {}
+        self.min_bucket_h = None if min_bucket_h is None else int(min_bucket_h)
         self.bucket_ladder: Optional[Tuple[Tuple[int, ...], Tuple[int, ...]]] = None
         if self.remnant_sizes:
             gbs = self.batch_size * self.process_count
@@ -201,7 +211,7 @@ class ShardedBatcher:
                 raise ValueError(f"global batch ({gbs}) must be a multiple "
                                  f"of batch_quantum ({self.batch_quantum})")
         if pad_multiple == "auto":
-            pad_multiple = self._resolve_auto_buckets()
+            pad_multiple = self._resolve_auto_buckets(min_pad_multiple)
         if isinstance(pad_multiple, int):
             pad_multiple = (pad_multiple, pad_multiple)
         if pad_multiple is not None:
@@ -267,7 +277,7 @@ class ShardedBatcher:
             j, m = int(choice[m][j]), m - 1
         return tuple(sorted(bounds))
 
-    def _resolve_auto_buckets(self) -> None:
+    def _resolve_auto_buckets(self, min_pad_multiple=None) -> None:
         """Pick bucket shapes for ``pad_multiple="auto"``: exact shapes
         (zero padding) when at most ``max_buckets`` distinct shapes
         occur; else the per-axis ladder (kh H bounds x kw W bounds) of
@@ -276,12 +286,23 @@ class ShardedBatcher:
         other axis's padded extent).  With remnant sizes in cost mode every
         grid with kh * kw <= max_buckets is scored by the full plan cost
         of the schedule it induces; otherwise grids that fill the budget
-        are scored by padded area.  Sets ``bucket_ladder``; returns None (the
-        pad multiple)."""
+        are scored by padded area.  ``min_pad_multiple`` floors each axis's
+        bounds (a floor above ``ds`` always builds a ladder: exact shapes
+        could not meet it).  Sets ``bucket_ladder``; returns None (the pad
+        multiple)."""
         shapes = self._shapes()
-        if not shapes or len(set(shapes)) <= self.max_buckets:
+        if not shapes:
             return None
-        floor = self.ds
+        if min_pad_multiple is None or isinstance(min_pad_multiple, int):
+            min_pad_multiple = (min_pad_multiple, min_pad_multiple)
+        floors = []
+        for m in min_pad_multiple:
+            f = max(self.ds, int(m or 0))
+            floors.append(-(-f // self.ds) * self.ds)
+        floor_h, floor_w = floors
+        if (floor_h == floor_w == self.ds
+                and len(set(shapes)) <= self.max_buckets):
+            return None
         hs = [h for h, _ in shapes]
         ws = [w for _, w in shapes]
         cost_scored = self.plan_mode == "cost" and self.remnant_sizes
@@ -292,13 +313,13 @@ class ShardedBatcher:
                       if kw >= 1)
         best, seen = None, set()
         for kh, kw in candidates:
-            hb = self._axis_bounds(hs, kh, floor)
-            wb = self._axis_bounds(ws, kw, floor)
+            hb = self._axis_bounds(hs, kh, floor_h)
+            wb = self._axis_bounds(ws, kw, floor_w)
             for _ in range(3):
                 hb2 = self._dp_axis_bounds(
-                    hs, [_ceil_bound(w, wb) for w in ws], kh, floor)
+                    hs, [_ceil_bound(w, wb) for w in ws], kh, floor_h)
                 wb2 = self._dp_axis_bounds(
-                    ws, [_ceil_bound(h, hb2) for h in hs], kw, floor)
+                    ws, [_ceil_bound(h, hb2) for h in hs], kw, floor_w)
                 if (hb2, wb2) == (hb, wb):
                     break
                 hb, wb = hb2, wb2
@@ -313,8 +334,8 @@ class ShardedBatcher:
             if best is None or score < best[0]:
                 best = (score, hb, wb)
         if best is None:  # budget under any grid: one bucket at the max
-            best = (0, (-(-max(hs) // floor) * floor,),
-                    (-(-max(ws) // floor) * floor,))
+            best = (0, (-(-max(hs) // floor_h) * floor_h,),
+                    (-(-max(ws) // floor_w) * floor_w,))
         self.bucket_ladder = (best[1], best[2])
         return None
 
@@ -327,7 +348,10 @@ class ShardedBatcher:
                         len(hb) - 1)
         wi = np.minimum(np.searchsorted(wb_arr, [w for _, w in shapes]),
                         len(wb) - 1)
-        cells, ncell = np.unique(np.stack([hb_arr[hi], wb_arr[wi]], axis=1),
+        snapped_h = hb_arr[hi]
+        if self.min_bucket_h is not None:
+            snapped_h = np.maximum(snapped_h, self.min_bucket_h)
+        cells, ncell = np.unique(np.stack([snapped_h, wb_arr[wi]], axis=1),
                                  axis=0, return_counts=True)
         counts = {(int(h), int(w)): int(c) for (h, w), c in zip(cells, ncell)}
         planner = GlobalPlanner(self._cost_model(), max_buckets=self.max_buckets,
@@ -382,7 +406,8 @@ class ShardedBatcher:
 
     def _bucket_key(self, hw: Tuple[int, int]) -> Tuple[int, int]:
         return snap_to_bucket(hw, ladder=self.bucket_ladder,
-                              pad_multiple=self.pad_multiple)
+                              pad_multiple=self.pad_multiple,
+                              min_bucket_h=self.min_bucket_h)
 
     # -- the plan ------------------------------------------------------------
     def _remnant_menu(self) -> Tuple[int, ...]:

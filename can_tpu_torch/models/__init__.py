@@ -6,6 +6,7 @@ from can_tpu_torch.models.cannet import (
     FEAT_CH,
     FRONTEND_CFG,
     CANNet,
+    LocalOps,
     context_block,
     load_vgg16_frontend,
     random_state_dict,
@@ -13,5 +14,5 @@ from can_tpu_torch.models.cannet import (
 )
 
 __all__ = ["BACKEND_CFG", "CONTEXT_SCALES", "FEAT_CH", "FRONTEND_CFG",
-           "CANNet", "context_block", "load_vgg16_frontend", "random_state_dict",
+           "CANNet", "LocalOps", "context_block", "load_vgg16_frontend", "random_state_dict",
            "reference_param_shapes"]

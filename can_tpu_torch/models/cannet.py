@@ -20,15 +20,20 @@ conv, BatchNorm2d, ReLU per entry, so ``frontend.{0,1,3,4,7,8,...}``),
 ``strict=True``.  The forward takes and returns NHWC; the context tail
 goes through the ``context_fused`` seam, which by default is
 ``ops.cuda_context``: the CUDA kernel on a CUDA tensor, its plain version
-on a CPU tensor.  In train mode the BN running statistics are updated in
-place under ``no_grad`` (the PyTorch idiom for the JAX package's returned
+on a CPU tensor.  The spatial primitives (convolutions, pools, the
+context tail's rows, the SyncBN group) come through ``LocalOps``
+(``can_tpu/models/cannet.py:49-79``): the defaults run the whole image
+on one process, and ``parallel/spatial.py``'s run an H-shard of it.  In
+train mode the BN running statistics are updated in place under
+``no_grad`` (the PyTorch idiom for the JAX package's returned
 ``new_stats``).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import functools
-from typing import Dict, Mapping, Optional
+from typing import Any, Callable, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -55,6 +60,32 @@ FEAT_CH = 512
 
 BN_MOMENTUM = 0.1
 BN_EPS = 1e-5
+
+
+@dataclasses.dataclass(frozen=True)
+class LocalOps:
+    """The spatial primitives of the forward (``LocalOps`` of
+    can_tpu/models/cannet.py:49).  The defaults are the single-process
+    ones; ``parallel.spatial.make_spatial_ops`` gives convolutions that
+    exchange halo rows with the neighbouring shards and an adaptive pool
+    that sums its partials over the spatial group.
+
+    ``global_hw``: the whole feature map's (H/8, W/8), None for the local
+    shape.  ``context_row0``: the first global feature row this shard
+    holds, passed to the context seam as ``row0`` (its rows of the
+    row-interpolation matrix); None = the whole map, and the seam is
+    called as ``(fv, aves, weights, hw)``.  ``bn_axes``: the process
+    group the train-mode BN moments are summed over (SyncBN), None for
+    the local batch; ``bn_shards`` its size.
+    """
+
+    conv2d: Callable = conv2d
+    max_pool: Callable = max_pool2d
+    adaptive_pool: Callable = adaptive_avg_pool2d
+    global_hw: Optional[Tuple[int, int]] = None
+    context_row0: Optional[int] = None
+    bn_axes: Any = None
+    bn_shards: int = 1
 
 
 def _make_layers(cfg, in_channels: int, dilation: int,
@@ -85,8 +116,9 @@ class CANNet(nn.Module):
     ``load_state_dict`` to fill.
     batch_norm: the BN variant (``make_layers(batch_norm=True)``).
     context_fused: replaces the context-tail seam ``(fv, aves, weights,
-    hw) -> fi``; None keeps ``ops.cuda_context``'s (the CUDA kernel on a
-    CUDA tensor, its plain version on a CPU tensor).
+    hw) -> fi`` (an H-shard's call adds ``row0=``, ``context_block``);
+    None keeps ``ops.cuda_context``'s (the CUDA kernel on a CUDA tensor,
+    its plain version on a CPU tensor).
     s2d_stem: the first frontend conv runs as
     ``depth_to_space(conv2d(space_to_depth(x), w', b'))`` with the folded
     kernel (``ops.conv.fold_stem_kernel``): the plain stem up to
@@ -137,7 +169,8 @@ class CANNet(nn.Module):
                 sample_mask: Optional[torch.Tensor] = None,
                 bn_ops: Optional[BNOps] = None,
                 compute_dtype=None, remat: bool = False,
-                bn_axes=None, bn_shards: int = 1) -> torch.Tensor:
+                bn_axes=None, bn_shards: int = 1,
+                ops: Optional[LocalOps] = None) -> torch.Tensor:
         """(N, H, W, 3) NHWC image batch -> (N, H/8, W/8, 1) density map,
         computed in ``compute_dtype`` (default: x's dtype).
 
@@ -152,7 +185,9 @@ class CANNet(nn.Module):
         summed over (``parallel.runtime.process_group()``), None for the
         local batch; ``bn_shards`` is its size, for the unmasked
         moments' unbiased correction (the masked path counts the global
-        valid pixels itself).
+        valid pixels itself).  ``ops``: the spatial primitives
+        (``LocalOps``; default the single-process ones with ``bn_axes``
+        and ``bn_shards``), which carry the SyncBN group themselves.
 
         ``remat`` (with gradients enabled): each segment — the frontend's
         four stages, each ending at its max-pool, the context block and
@@ -163,6 +198,11 @@ class CANNet(nn.Module):
         leaves the running statistics alone: the updates a segment returns
         are applied after the forward, from its first run only.
         """
+        if ops is None:
+            ops = LocalOps(bn_axes=bn_axes, bn_shards=bn_shards)
+        elif bn_axes is not None or bn_shards != 1:
+            raise ValueError("with ops=, the SyncBN group comes in "
+                             "ops.bn_axes / ops.bn_shards")
         if compute_dtype is not None:
             x = x.to(compute_dtype)
         dt = x.dtype
@@ -185,12 +225,12 @@ class CANNet(nn.Module):
             return fn(*args)
 
         stack = functools.partial(self._stack, dt=dt, train=train, bn_ops=bn_ops,
-                                  bn_axes=bn_axes, bn_shards=bn_shards)
+                                  ops=ops)
         updates = []
         for stage, mask in zip(self._stages, masks):
             x, ups = run(stack, stage, x, mask)
             updates += ups
-        x = run(self._context, x)
+        x = run(self._context, x, ops)
         # at /8 the mask is back at pixel_mask resolution
         x, ups = run(stack, self.backend, x, masks[-1])
         updates += ups
@@ -202,14 +242,13 @@ class CANNet(nn.Module):
                     layer.num_batches_tracked += 1
         return x
 
-    def _context(self, fv):
+    def _context(self, fv, ops):
         """The context block and the concatenation: (fv, fi)."""
         fi = context_block(self.context_params(), fv,
-                           context_fused=self.context_fused)
+                           context_fused=self.context_fused, ops=ops)
         return torch.cat([fv, fi], dim=-1)
 
-    def _stack(self, layers, x, bn_mask, *, dt, train, bn_ops, bn_axes,
-               bn_shards):
+    def _stack(self, layers, x, bn_mask, *, dt, train, bn_ops, ops):
         """A frontend stage or the backend (with the output conv), one
         remat segment: returns ``(x, [(BatchNorm2d, new stats), ...])``."""
         dilation = 2 if layers is self.backend else 1
@@ -221,24 +260,24 @@ class CANNet(nn.Module):
                                               layer.bias.to(dt))
                     x = depth_to_space(conv2d(space_to_depth(x), wp, bp))
                 else:
-                    x = conv2d(x, layer.weight.to(dt), layer.bias.to(dt),
-                               dilation=dilation)
+                    x = ops.conv2d(x, layer.weight.to(dt), layer.bias.to(dt),
+                                   dilation=dilation)
             elif isinstance(layer, nn.BatchNorm2d):
                 stats = {"mean": layer.running_mean, "var": layer.running_var}
                 x, new = _batch_norm(x, {"scale": layer.weight,
                                          "bias": layer.bias},
                                      stats, train, BN_MOMENTUM, mask=bn_mask,
-                                     bn_ops=bn_ops, axes=bn_axes,
-                                     n_shards=bn_shards)
+                                     bn_ops=bn_ops, axes=ops.bn_axes,
+                                     n_shards=ops.bn_shards)
                 if new is not None:
                     updates.append((layer, new))
             elif isinstance(layer, nn.ReLU):
                 x = F.relu(x, inplace=True)
             elif isinstance(layer, nn.MaxPool2d):
-                x = max_pool2d(x)
+                x = ops.max_pool(x)
         if layers is self.backend:
             p = self.output_layer
-            x = conv2d(x, p.weight.to(dt), p.bias.to(dt), padding=0)
+            x = ops.conv2d(x, p.weight.to(dt), p.bias.to(dt), padding=0)
         return x, updates
 
 
@@ -300,7 +339,7 @@ def _batch_norm(y, bn_params: Mapping, stats: Optional[Mapping], train: bool,
 
 
 def context_block(cparams: Mapping, fv: torch.Tensor, *,
-                  context_fused) -> torch.Tensor:
+                  context_fused, ops: Optional[LocalOps] = None) -> torch.Tensor:
     """Multi-scale context fusion (``can_tpu`` cannet.py:278):
     fi = sum_k gate_k * sm_k / (sum_k gate_k + 1e-12), with
     sm_k = upsample(1x1(adaptive_pool(fv, k))) and
@@ -309,14 +348,19 @@ def context_block(cparams: Mapping, fv: torch.Tensor, *,
     cparams: ``{"s{k}": {"ave": (C, C), "weight": (C, C)}}`` (Cin, Cout).
     ``context_fused`` (the seam, ``ops.cuda_context.make_fused_context``)
     computes everything after the per-scale pooled projections, which are
-    tiny and stay outside.
+    tiny and stay outside.  ``ops`` (``LocalOps``): the adaptive pool, and
+    for an H-shard the whole map's ``global_hw`` and the shard's first
+    feature row, which the seam gets as ``row0``.
     """
-    hw = (fv.shape[1], fv.shape[2])
-    aves = [conv1x1(adaptive_avg_pool2d(fv, s),
+    ops = ops or LocalOps()
+    hw = ops.global_hw or (fv.shape[1], fv.shape[2])
+    aves = [conv1x1(ops.adaptive_pool(fv, s),
                     cparams[f"s{s}"]["ave"].to(fv.dtype))
             for s in CONTEXT_SCALES]
     weights = [cparams[f"s{s}"]["weight"].to(fv.dtype) for s in CONTEXT_SCALES]
-    return context_fused(fv, aves, weights, hw)
+    if ops.context_row0 is None:
+        return context_fused(fv, aves, weights, hw)
+    return context_fused(fv, aves, weights, hw, row0=ops.context_row0)
 
 
 def load_vgg16_frontend(model: CANNet, npz_path: str) -> CANNet:

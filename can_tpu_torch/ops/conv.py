@@ -20,8 +20,9 @@ import torch.nn.functional as F
 
 
 def conv2d(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None,
-           *, dilation: int = 1, padding: Optional[int] = None) -> torch.Tensor:
-    """Stride-1 conv, SAME-style padding ``dilation * (k // 2)`` by default.
+           *, dilation: int = 1, padding=None) -> torch.Tensor:
+    """Stride-1 conv, SAME-style padding ``dilation * (k // 2)`` by default;
+    ``padding`` an int for both axes or (rows, columns).
 
     x: (N, H, W, Cin); w: (Cout, Cin, kh, kw); b: (Cout,) or None.
     ``padding=dilation`` with kernel 3 keeps the spatial size, matching
@@ -33,8 +34,10 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None,
     """
     if padding is None:
         pad = (dilation * (w.shape[2] // 2), dilation * (w.shape[3] // 2))
-    else:
+    elif isinstance(padding, int):
         pad = (padding, padding)
+    else:
+        pad = tuple(padding)
     y = F.conv2d(x.permute(0, 3, 1, 2), w, padding=pad, dilation=dilation)
     if b is not None:
         y = y.add_(b.view(1, -1, 1, 1))

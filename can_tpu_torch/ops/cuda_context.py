@@ -37,6 +37,11 @@ product.  ``context_tail_decomposed`` is a plain PyTorch emulation of the
 kernel's arithmetic at its rounding points, for the tests; nothing on the
 main path calls it.
 
+Under spatial parallelism (``parallel/spatial.py``) each H-shard calls the
+seam with ``row0``, its first row of the whole feature map: the kernel
+reads uh per local row, so the shard runs it unchanged with rows ``[row0,
+row0 + H_local)`` of the whole map's uh (``pack_inputs``).
+
 On a CPU tensor the seam runs the plain PyTorch version; on a CUDA tensor
 it launches the kernel or raises — no fallback.  ``LAUNCHES`` counts one
 per wrapper call (its two device launches together).  Gradients: on the
@@ -271,29 +276,44 @@ def context_tail(fv, avew, uh, wmat) -> torch.Tensor:
     raise ValueError(f"context_fused runs on cpu or cuda, got {fv.device}")
 
 
-def pack_inputs(fv, aves, weights, hw):
-    """Seam arguments -> the kernel's (avew, uh, wmat)."""
-    if tuple(hw) != (fv.shape[1], fv.shape[2]):
-        raise ValueError("the fused context tail is single-device only: "
-                         f"hw {tuple(hw)} != fv's {tuple(fv.shape[1:3])}")
+def pack_inputs(fv, aves, weights, hw, row0=None):
+    """Seam arguments -> the kernel's (avew, uh, wmat).
+
+    ``hw`` is the whole feature map's (H, W).  Unsharded (``row0`` None)
+    it must be fv's own.  An H-shard passes ``row0``, its first row of
+    the whole map: uh is built for the whole height and its rows
+    ``[row0, row0 + H_local)`` go to the kernel, which reads uh per
+    local row (the rows an H-shard's pixels interpolate from; the pooled
+    aves are the whole map's).  W is never sharded."""
+    h_l, w_l = fv.shape[1], fv.shape[2]
+    if row0 is None:
+        if tuple(hw) != (h_l, w_l):
+            raise ValueError("the fused context tail is single-device only: "
+                             f"hw {tuple(hw)} != fv's {tuple(fv.shape[1:3])}")
+    elif hw[1] != w_l or not 0 <= row0 <= hw[0] - h_l:
+        raise ValueError(f"an H-shard of fv {tuple(fv.shape[1:3])} at row "
+                         f"{row0} does not lie in the map {tuple(hw)}")
     avew, uh = precompute(aves, hw)
+    if row0 is not None:
+        uh = uh[row0:row0 + h_l].contiguous()
     wmat = torch.stack([wm.to(fv.dtype) for wm in weights])
     return avew, uh, wmat
 
 
 def make_fused_context():
     """The ``context_fused`` seam of ``models.cannet``: a callable
-    ``(fv, aves, weights, hw) -> fi`` with fv (B, H, W, C), aves the
-    per-scale pooled projections (B, S, S, C), weights the per-scale
-    (Cin, Cout) gate matrices in fv's dtype."""
+    ``(fv, aves, weights, hw, row0=None) -> fi`` with fv (B, H, W, C),
+    aves the per-scale pooled projections (B, S, S, C), weights the
+    per-scale (Cin, Cout) gate matrices in fv's dtype; ``hw`` and
+    ``row0`` as ``pack_inputs`` takes them."""
 
-    def fused(fv, aves, weights, hw):
-        return context_tail(fv, *pack_inputs(fv, aves, weights, hw))
+    def fused(fv, aves, weights, hw, row0=None):
+        return context_tail(fv, *pack_inputs(fv, aves, weights, hw, row0))
 
     return fused
 
 
-def reference_context(fv, aves, weights, hw) -> torch.Tensor:
+def reference_context(fv, aves, weights, hw, row0=None) -> torch.Tensor:
     """The seam with the plain version on every device — the yardstick
     the kernel is held against on the card."""
-    return context_tail_reference(fv, *pack_inputs(fv, aves, weights, hw))
+    return context_tail_reference(fv, *pack_inputs(fv, aves, weights, hw, row0))

@@ -1,11 +1,13 @@
 """Multi-process training over ``torch.distributed`` (counterpart of
 ``can_tpu/parallel``): the runtime (rendezvous, bounded barriers,
-host-value agreement), the (dp, sp) mesh and DDP with SyncBN.  The JAX
-package's ``batch_sharding`` and ``replicated_sharding`` have no
-counterpart (``parallel/mesh.py``): each process's batch is its own slice
-and DDP replicates the parameters."""
+host-value agreement), the (dp, sp) mesh, DDP with SyncBN and spatial
+parallelism (image-height sharding with halo exchange, SyncBN over the
+dp x sp world).  The JAX package's ``batch_sharding`` and
+``replicated_sharding`` have no counterpart (``parallel/mesh.py``): each
+process's batch is its own slice and every process holds the whole
+model."""
 
-from .mesh import make_mesh
+from .mesh import Mesh, make_mesh
 from .runtime import (
     init_runtime,
     shutdown_runtime,
@@ -24,9 +26,19 @@ from .data_parallel import (
     make_global_batch,
     make_dp_train_step,
     make_dp_eval_step,
+    spatial_rows,
+)
+from .spatial import (
+    HaloTransport,
+    halo_exchange_rows,
+    make_spatial_ops,
+    make_spatial_apply,
+    make_sp_train_step,
+    make_sp_eval_step,
 )
 
 __all__ = [
+    "Mesh",
     "make_mesh",
     "init_runtime",
     "shutdown_runtime",
@@ -43,4 +55,11 @@ __all__ = [
     "make_global_batch",
     "make_dp_train_step",
     "make_dp_eval_step",
+    "spatial_rows",
+    "HaloTransport",
+    "halo_exchange_rows",
+    "make_spatial_ops",
+    "make_spatial_apply",
+    "make_sp_train_step",
+    "make_sp_eval_step",
 ]

@@ -50,12 +50,34 @@ from can_tpu_torch.train.steps import (
 EVAL_KEYS = ("abs_err_sum", "sq_err_sum", "num_valid")
 
 
-def make_global_batch(batch: Batch, mesh: Mesh, *, device) -> Dict[str, torch.Tensor]:
+def make_global_batch(batch: Batch, mesh: Mesh, *, device,
+                      spatial: bool = False) -> Dict[str, torch.Tensor]:
     """This process's slice of a global batch -> the step's dict of
     tensors on ``device`` (the global batch is ``mesh.dp`` such slices;
-    none is ever gathered)."""
-    del mesh  # each process holds its own slice only
+    none is ever gathered).  ``spatial``: the slice is this rank's
+    replica's (``mesh.d``), and the rank keeps its rows of it
+    (``spatial_rows``) before anything moves to the device."""
+    if spatial:
+        batch = spatial_rows(batch, mesh)
     return batch_to_device(batch, device)
+
+
+def spatial_rows(batch: Batch, mesh: Mesh, ds: int = 8) -> Batch:
+    """Rank ``(d, s)``'s block of its replica's host batch: rows
+    ``[s * H/sp, (s + 1) * H/sp)`` of image, the same rows at /``ds`` of
+    dmap and pixel_mask, and the whole sample_mask (views, no copy).
+    H must split over ``sp`` at /``ds`` (``spatial._check_spatial_shapes``
+    holds the step to more)."""
+    h = batch.image.shape[1]
+    if h % (ds * mesh.sp):
+        raise ValueError(f"bucket height {h} does not split over sp={mesh.sp} "
+                         f"at /{ds}")
+    hl, gl = h // mesh.sp, h // ds // mesh.sp
+    s = mesh.s
+    return Batch(image=batch.image[:, s * hl:(s + 1) * hl],
+                 dmap=batch.dmap[:, s * gl:(s + 1) * gl],
+                 pixel_mask=batch.pixel_mask[:, s * gl:(s + 1) * gl],
+                 sample_mask=batch.sample_mask)
 
 
 def dp_size(mesh: Mesh) -> int:

@@ -193,12 +193,35 @@ slice 7, last:
               nothing in both ranks at once (the build time per rank); the
               eval CLI at world 2 against world 1 (MAE and MSE within
               1e-6).  gloo's times measure correctness, not NCCL's speed;
+slice 10, after ddp:
+   sp       — spatial parallelism on the one card (``parallel/spatial.py``):
+              two gloo ranks on cuda:0 split the fixed batch's rows (sp=2;
+              the halo through pinned host buffers), one step per case
+              (f32, f32 remat, bf16) against world 1 (the loss and the
+              update of all weights, [ddp]'s gates), both ranks and a
+              second run bitwise equal, remat bitwise equal to the plain
+              step, launches per rank exact (BN forward 16, 32 with remat;
+              backward 16; context 1, 2 with remat); the halo's exchanges
+              and bytes and the pooled all-reduces per step; the context
+              kernel on each shard's rows of a (8, 72, 96, 512) map against
+              ``reference_context`` on them; the step's halo exchanges
+              replayed alone; one (1, 2048, 2048) BN f32 image's step ms
+              and peak memory at sp=1 and per rank at sp=2; the eval CLI at
+              ``--sp 2`` against world 1 (MAE and MSE within 1e-6); a dp=2 x
+              sp=2 step of four ranks at (4, 256, 320) against world 1
+              (rank = d * sp + s);
 9. report   — the card's name and power limit (nvidia-smi's own line), a
               ``kernels`` JSON line,
               and last the result line ``{"ok": true, "device": {...}}``.
 
-``python3 chip_smoke.py --ddp-worker SPEC`` is one rank of the ddp phase
-(the phase starts it; SPEC is the JSON the phase writes).
+``python3 chip_smoke.py --ddp-worker SPEC`` is one rank of the ddp or sp
+phase (the phase starts it; SPEC is the JSON the phase writes).
+``python3 chip_smoke.py --sp-only`` runs the build and the sp phase alone;
+``python3 chip_smoke.py --sp-nccl``, on a machine with 4 GPUs, runs the
+build and the sp steps over NCCL with one rank per GPU (dp=1 x sp=2 on two,
+with step times, the halo replayed alone and the UCF-scale image; dp=2 x
+sp=2 on four), each against world 1 on cuda:0 by the sp phase's gates.
+Neither prints a result line.
 
 ``python3 chip_smoke.py --measure-only`` runs the build and the timings of
 phases 2 and 4 that reach the kernels only through interfaces older
@@ -3483,6 +3506,8 @@ def ddp_worker(spec_path: Path) -> int:
     )
 
     spec = json.loads(spec_path.read_text())
+    if spec["mode"] == "sp":
+        return sp_worker(spec)
     out = {}
     if spec["mode"] == "world1":
         # the train CLI under torchrun: its own rendezvous, NCCL world 1
@@ -3787,14 +3812,529 @@ def phase_ddp(work: Path) -> dict:
     return counts
 
 
+# [sp]: spatial parallelism on the one card.  Two gloo ranks on cuda:0
+# (NCCL refuses two ranks on one GPU) split the fixed batch's rows; the
+# halo rows go through pinned host buffers (gloo sends CPU tensors only),
+# so the times here measure correctness, not NCCL's speed.
+SP_CASES = DDP_CASES
+# the sp=2 step against world 1: as [ddp]'s world 2 (summation order only)
+SP_LOSS_RTOL, SP_UPDATE_RTOL = DDP_LOSS_RTOL, DDP_UPDATE_RTOL
+# the dp=2 x sp=2 mesh check: 4 ranks on the card at a smaller batch
+SP_SMALL = (4, 256, 320)
+# one UCF-QNRF-scale image, BN f32, at sp=1 and at sp=2
+SP_UCF = (1, 2048, 2048)
+# the context kernel on an H-shard's rows against the plain version
+SP_CONTEXT_SHAPE = (8, 72, 96, 512)
+SP_STEP_REPS = 3
+
+
+def sp_host_block(root: Path, mesh):
+    """Rank (d, s)'s block of the fixed batch: its replica's slice of the
+    schedule's first launch, its rows of it, on the card
+    (``make_global_batch(..., spatial=True)``: the rows are cut on the
+    host)."""
+    from can_tpu_torch.data import CrowdDataset, ShardedBatcher
+    from can_tpu_torch.parallel import make_global_batch
+
+    ds = CrowdDataset(str(root / "train_data" / "images"),
+                      str(root / "train_data" / "ground_truth"))
+    host = next(ShardedBatcher(ds, TRAIN_BATCH // mesh.dp, seed=SEED,
+                               pad_multiple=TRAIN_PAD, process_index=mesh.d,
+                               process_count=mesh.dp).epoch(0))
+    return make_global_batch(host, mesh, device="cuda", spatial=True)
+
+
+def sp_synthetic_block(shape, mesh):
+    """Rank (d, s)'s block of ``synthetic_batch(*shape)`` (the same seeded
+    batch on every rank)."""
+    b, h, _ = shape
+    full = synthetic_batch(*shape)
+    n, hl, gl = b // mesh.dp, h // mesh.sp, h // 8 // mesh.sp
+    d, s = mesh.d, mesh.s
+    return {"image": full["image"][d * n:(d + 1) * n, s * hl:(s + 1) * hl].contiguous(),
+            "dmap": full["dmap"][d * n:(d + 1) * n, s * gl:(s + 1) * gl].contiguous(),
+            "pixel_mask": full["pixel_mask"][d * n:(d + 1) * n,
+                                             s * gl:(s + 1) * gl].contiguous(),
+            "sample_mask": full["sample_mask"][d * n:(d + 1) * n]}
+
+
+def sp_step(block, mesh, hw, tag: str, remat: bool):
+    """One sp BN step from the seed on this rank's block: (global loss,
+    state dict, launches, the step's halo and pooled all-reduce counts,
+    the step object and state for timing)."""
+    import torch
+
+    from can_tpu_torch.models import CANNet
+    from can_tpu_torch.ops import bn_moments as bm
+    from can_tpu_torch.ops import cuda_bn as cb
+    from can_tpu_torch.ops import cuda_context as cc
+    from can_tpu_torch.parallel import make_sp_train_step, reduce_value
+    from can_tpu_torch.parallel import spatial
+    from can_tpu_torch.train import create_train_state, make_lr_schedule
+
+    model = CANNet(device="cuda", seed=SEED, batch_norm=True)
+    model = model.to(memory_format=torch.channels_last)
+    state = create_train_state(model, make_lr_schedule(1e-6, world_size=mesh.dp))
+    step = make_sp_train_step(model, mesh, hw, bn_ops=bm.make_bn_ops("kernel"),
+                              compute_dtype=torch.bfloat16 if tag == "bf16" else None,
+                              remat=remat)
+    spatial.reset_stats()
+    cb.reset_launches()
+    cc.reset_launches()  # the main path starts here
+    _, m = step(state, block)
+    torch.cuda.synchronize()
+    launches = {"bn": cb.LAUNCHES, "bn_backward": cb.BACKWARD_LAUNCHES,
+                "context": cc.LAUNCHES}  # ... and ends here
+    stats = dict(spatial.STATS)
+    loss = float(reduce_value(np.float64(float(m["loss"])), average=False))
+    sd = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+    return loss, sd, launches, stats, (step, state)
+
+
+def sp_context_check(mesh) -> float:
+    """The context kernel on this shard's rows of a (8, 72, 96, 512) map,
+    with rows [row0, row0 + 36) of the whole map's interpolation matrix,
+    against ``reference_context`` on the same slice (``[kernel]``'s
+    tolerances); returns the worst abs error.  Not on the main path."""
+    import torch
+
+    from can_tpu_torch.ops import cuda_context as cc
+
+    b, h, w, c = SP_CONTEXT_SHAPE
+    hl = h // mesh.sp
+    g = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    fv32 = torch.randn((b, h, w, c), generator=g, device="cuda")
+    fv32 = fv32[:, mesh.s * hl:(mesh.s + 1) * hl].contiguous()
+    aves32 = [torch.randn((b, s, s, c), generator=g, device="cuda") for s in cc.SCALES]
+    ws32 = [torch.randn((c, c), generator=g, device="cuda") / c ** 0.5
+            for _ in cc.SCALES]
+    worst = 0.0
+    fused = cc.make_fused_context()
+    for name, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        args = (fv32.to(dt), [a.to(dt) for a in aves32], [x.to(dt) for x in ws32],
+                (h, w))
+        got = fused(*args, row0=mesh.s * hl).float()
+        want = cc.reference_context(*args, row0=mesh.s * hl).float()
+        rtol, atol = TOL[name]
+        diff = (got - want).abs()
+        if not bool(torch.isfinite(got).all()) or not bool(
+                (diff <= atol + rtol * want.abs()).all()):
+            fail(f"[sp] context_fused on rows {mesh.s * hl}..{(mesh.s + 1) * hl} "
+                 f"{name}: max abs err {float(diff.max()):.3e} exceeds rtol "
+                 f"{rtol} / atol {atol}")
+        worst = max(worst, float(diff.max()))
+    return worst
+
+
+def sp_halo_ms(block, mesh, hw) -> dict:
+    """The halo exchanges of one f32 step, replayed alone: their shapes
+    recorded through a step, then the same exchanges timed back to back
+    (both ranks in lockstep; the staged copies are synchronous)."""
+    import torch
+
+    from can_tpu_torch.parallel import barrier
+    from can_tpu_torch.parallel import spatial
+
+    shapes = []
+    real = spatial.HaloTransport.exchange
+
+    def recording(self, down, up):
+        shapes.append((tuple(down.shape), tuple(up.shape), down.dtype))
+        return real(self, down, up)
+
+    spatial.HaloTransport.exchange = recording
+    try:
+        sp_step(block, mesh, hw, "f32", False)
+    finally:
+        spatial.HaloTransport.exchange = real
+    transport = spatial.HaloTransport(mesh, "cuda")
+    bufs = [(torch.zeros(a, dtype=dt, device="cuda"), torch.zeros(b, dtype=dt, device="cuda"))
+            for a, b, dt in shapes]
+    times = []
+    for _ in range(SP_STEP_REPS):
+        barrier("sp-halo")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for down, up in bufs:
+            transport.exchange(down, up)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    nbytes = sum(d.numel() * d.element_size() + u.numel() * u.element_size()
+                 for d, u in bufs) // mesh.sp
+    return {"exchanges": len(shapes), "ms": statistics.median(times),
+            "bytes_sent_per_rank": nbytes}
+
+
+def sp_ucf(mesh) -> dict:
+    """One UCF-QNRF-scale image, BN f32: the step's median ms and this
+    process's peak memory, on this rank's block (the whole image at sp=1)."""
+    import torch
+
+    from can_tpu_torch.models import CANNet
+    from can_tpu_torch.ops import bn_moments as bm
+    from can_tpu_torch.parallel import make_sp_train_step
+    from can_tpu_torch.train import create_train_state, make_lr_schedule, make_train_step
+
+    torch.cuda.empty_cache()
+    model = CANNet(device="cuda", seed=SEED, batch_norm=True)
+    model = model.to(memory_format=torch.channels_last)
+    state = create_train_state(model, make_lr_schedule(1e-6))
+    if mesh is None:
+        batch = synthetic_batch(*SP_UCF)
+        step = make_train_step(bn_ops=bm.make_bn_ops("kernel"))
+    else:
+        batch = sp_synthetic_block(SP_UCF, mesh)
+        step = make_sp_train_step(model, mesh, SP_UCF[1:],
+                                  bn_ops=bm.make_bn_ops("kernel"))
+    step(state, batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = time_ms(lambda: step(state, batch), reps=SP_STEP_REPS)
+    peak = torch.cuda.max_memory_allocated()
+    del model, state, step, batch
+    torch.cuda.empty_cache()
+    return {"ms": ms, "peak_gib": peak / 2 ** 30}
+
+
+def sp_worker(spec: dict) -> int:
+    """One rank of an [sp] run: gloo ranks on cuda:0 (``spec["nccl"]``
+    false) or torchrun's ranks on cuda:LOCAL_RANK over NCCL; the fixed
+    batch's blocks (all of ``SP_CASES``) or, with ``spec["small"]``, the
+    smaller synthetic batch's (f32); ``measure``: step times, the context
+    check, the halo replay, the UCF-scale image and the eval CLI;
+    ``ucf``: step times, the halo replay and the UCF-scale image."""
+    import torch
+
+    from can_tpu_torch.cli import test as eval_cli
+    from can_tpu_torch.device import use_deterministic, use_full_f32
+    from can_tpu_torch.ops import cuda_context as cc
+    from can_tpu_torch.parallel import init_runtime, make_mesh, shutdown_runtime
+    from can_tpu_torch.parallel.spatial import HaloTransport
+
+    use_deterministic()
+    use_full_f32()
+    topo = (init_runtime() if spec.get("nccl")
+            else init_runtime(device=torch.device("cuda", 0), backend="gloo"))
+    mesh = make_mesh(dp=spec["dp"], sp=spec["sp"])
+    out = {"topology": topo, "mesh": [mesh.d, mesh.s], "cases": {},
+           "halo_path": HaloTransport(mesh, "cuda").path}
+    out_dir = Path(spec["out_dir"])
+    if spec.get("small"):
+        block = sp_synthetic_block(SP_SMALL, mesh)
+        hw = SP_SMALL[1:]
+        cases = (("f32", False),)
+    else:
+        block = sp_host_block(Path(spec["root"]), mesh)
+        hw = (block["image"].shape[1] * mesh.sp, block["image"].shape[2])
+        cases = SP_CASES
+    timed = spec.get("measure") or spec.get("ucf")
+    out["block"] = list(block["image"].shape)
+    for tag, remat in cases:
+        loss, sd, launches, stats, (step, state) = sp_step(block, mesh, hw,
+                                                           tag.split()[0], remat)
+        path = out_dir / f"{tag.replace(' ', '_')}_rank{topo['process_index']}.pt"
+        torch.save(sd, path)
+        out["cases"][tag] = {"loss": loss, "state": str(path), "launches": launches,
+                             "stats": stats}
+        if timed and tag in ("f32", "bf16"):
+            out["cases"][tag]["step_ms"] = time_ms(lambda: step(state, block),
+                                                   reps=SP_STEP_REPS)
+        del step, state
+    if timed:
+        out["halo"] = sp_halo_ms(block, mesh, hw)
+        del block
+        out["ucf"] = sp_ucf(mesh)
+    if spec.get("measure"):
+        out["context_err"] = sp_context_check(mesh)
+        cc.reset_launches()  # the main path starts here
+        got = eval_cli.evaluate_checkpoint(eval_cli.parse_args(spec["eval_argv"]))
+        out["eval"] = {k: got[k] for k in ("mae", "mse", "num_images", "batches")}
+        out["eval"]["launches"] = cc.LAUNCHES  # ... and ends here
+    shutdown_runtime()
+    (out_dir / f"sp_rank{topo['process_index']}.json").write_text(json.dumps(out))
+    return 0
+
+
+def sp_ranks(work: Path, sp_dir: Path, tag: str, spec: dict, world: int) -> list:
+    """Run ``world`` [sp] ranks — on cuda:0 over gloo, or with
+    ``spec["nccl"]`` one per GPU over NCCL under ``torchrun --standalone``
+    — and return their JSON results."""
+    out_dir = sp_dir / tag
+    out_dir.mkdir(exist_ok=True)
+    port = _free_port()
+    cmds = []
+    if spec.get("nccl"):
+        path = out_dir / "spec.json"
+        path.write_text(json.dumps(dict(spec, mode="sp", out_dir=str(out_dir))))
+        cmds.append(([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                      f"--nproc_per_node={world}", str(ROOT / "chip_smoke.py"),
+                      "--ddp-worker", str(path)], dict(os.environ)))
+    for rank in range(0 if spec.get("nccl") else world):
+        path = out_dir / f"spec{rank}.json"
+        path.write_text(json.dumps(dict(spec, mode="sp", out_dir=str(out_dir))))
+        cmds.append(([sys.executable, str(ROOT / "chip_smoke.py"), "--ddp-worker",
+                      str(path)],
+                     dict(os.environ, RANK=str(rank), WORLD_SIZE=str(world),
+                          LOCAL_RANK=str(rank), MASTER_ADDR="127.0.0.1",
+                          MASTER_PORT=str(port))))
+    t0 = time.perf_counter()
+    run_ranks(cmds, sp_dir, f"sp_{tag}")
+    log(f"[sp] {tag}: {world} ranks in {time.perf_counter() - t0:.1f} s")
+    return [json.loads((out_dir / f"sp_rank{r}.json").read_text()) for r in range(world)]
+
+
+def _check_sp_case(tag, ranks, want_launch, ref, old, label):
+    """Every rank's launches exact and state bitwise equal to rank 0's;
+    the step against world 1 (loss, update of all weights)."""
+    import torch
+
+    for r, out in enumerate(ranks):
+        got = out["cases"][tag]["launches"]
+        if got != want_launch:
+            fail(f"[sp] {label} {tag}: rank {r} launches {got}, want {want_launch} "
+                 f"(short = a plain-version fallback)")
+    states = [torch.load(out["cases"][tag]["state"]) for out in ranks]
+    for r in range(1, len(states)):
+        bad, worst = snap_diff(states[0], states[r])
+        if bad:
+            fail(f"[sp] {label} {tag}: rank {r} differs from rank 0 in {len(bad)} "
+                 f"tensors (worst {worst:.3e})")
+    dt = tag.split()[0]
+    loss, loss1 = ranks[0]["cases"][tag]["loss"], ref[0]
+    loss_rel = abs(loss - loss1) / abs(loss1)
+    upd = _update_rel(old, states[0], ref[1])
+    if loss_rel > SP_LOSS_RTOL[dt] or not upd <= SP_UPDATE_RTOL[dt]:
+        fail(f"[sp] {label} {tag} is off world 1: loss rel {loss_rel:.2e}, "
+             f"update rel {upd:.3e}")
+    return states[0], loss, loss_rel, upd
+
+
+def phase_sp(work: Path) -> dict:
+    """dp=1 x sp=2 on the fixed batch (f32, f32 remat, bf16) against world
+    1, bitwise across ranks and across two runs; the context kernel on a
+    shard's rows; the halo and pooled all-reduce counts and the halo's
+    time; one UCF-QNRF-scale image at sp=1 and sp=2; the eval CLI at
+    --sp 2 against world 1; a dp=2 x sp=2 step of 4 ranks against world
+    1."""
+    import torch
+
+    from can_tpu_torch.cli import test as eval_cli
+    from can_tpu_torch.cli import train as train_cli
+    from can_tpu_torch.device import use_deterministic
+    from can_tpu_torch.models import CANNet
+    from can_tpu_torch.ops import cuda_context as cc
+    from can_tpu_torch.utils.checkpoint import has_checkpoint
+
+    t_phase = time.perf_counter()
+    use_deterministic()  # as every phase from [determinism] on (--sp-only too)
+    root = train_data(work)
+    sp_dir = work / "sp"
+    sp_dir.mkdir(exist_ok=True)
+    counts = {"bn": 0, "bn_backward": 0, "context": 0}
+
+    def add(launches):
+        for k, v in launches.items():
+            counts[k] += v
+
+    ck = work / "ddp" / "ckpt_world1"  # [ddp]'s checkpoint, else a fresh one
+    if not has_checkpoint(str(ck)):
+        ck = sp_dir / "ckpt"
+        cc.reset_launches()  # set-up, not the main path: not counted
+        train_cli.train(train_cli.parse_args([
+            "--data_root", str(root), "--syncBN", "--bn-impl", "kernel",
+            "--batch-size", str(TRAIN_BATCH), "--pad-multiple", str(TRAIN_PAD),
+            "--no-remnant-batches", "--epochs", "1", "--max-steps-per-epoch",
+            str(TRAIN_STEPS), "--lr", "1e-6", "--seed", str(SEED),
+            "--checkpoint-dir", str(ck)]))
+    batch = fixed_batch(root)
+    refs = {}
+    for tag, remat in SP_CASES:
+        loss, sd, launches = ddp_step_state(batch, tag.split()[0], remat, 1)
+        refs[tag] = (loss, sd)
+        add(launches)
+    small = synthetic_batch(*SP_SMALL)
+    loss, sd, launches = ddp_step_state(small, "f32", False, 1)
+    refs["small"] = (loss, sd)
+    add(launches)
+    del batch, small
+    ucf1 = sp_ucf(None)
+    eval_argv = ["--data_root", str(root), "--checkpoint-dir", str(ck), "--syncBN",
+                 "--num-workers", "0", "--batch-size", str(TRAIN_BATCH)]
+    cc.reset_launches()  # the main path starts here
+    one = eval_cli.evaluate_checkpoint(eval_cli.parse_args(eval_argv))
+    add({"context": cc.LAUNCHES})  # ... and ends here
+    old = {k: v.detach().cpu().clone() for k, v in
+           CANNet(device="cpu", seed=SEED, batch_norm=True).state_dict().items()}
+    torch.cuda.empty_cache()
+
+    spec = {"root": str(root), "dp": 1, "sp": 2}
+    runs = [sp_ranks(work, sp_dir, "a", dict(spec, measure=True,
+                                              eval_argv=eval_argv + ["--sp", "2"]), 2),
+            sp_ranks(work, sp_dir, "b", spec, 2)]
+    four = sp_ranks(work, sp_dir, "dp2", {"root": str(root), "dp": 2, "sp": 2,
+                                          "small": True}, 4)
+    for ranks in runs + [four]:
+        for r in ranks:
+            for c in r["cases"].values():
+                add(c["launches"])
+    add({"context": sum(r["eval"]["launches"] for r in runs[0])})
+    a = runs[0]
+    for r, out in enumerate(a):
+        if out["mesh"] != [0, r] or out["topology"]["backend"] != "gloo":
+            fail(f"[sp] rank {r}: mesh {out['mesh']} topology {out['topology']}")
+    for r, out in enumerate(four):
+        if out["mesh"] != list(divmod(r, 2)):
+            fail(f"[sp] dp=2 x sp=2 rank {r}: mesh (d, s) {out['mesh']}, want "
+                 f"{list(divmod(r, 2))} (rank = d * sp + s)")
+    for tag, remat in SP_CASES:
+        want_launch = {"bn": BN_LAYERS * (2 if remat else 1), "bn_backward": BN_LAYERS,
+                       "context": 2 if remat else 1}
+        state_a, loss, loss_rel, upd = _check_sp_case(tag, a, want_launch, refs[tag],
+                                                      old, "sp=2")
+        bad, worst = snap_diff(state_a, torch.load(runs[1][0]["cases"][tag]["state"]))
+        if bad or runs[1][0]["cases"][tag]["loss"] != loss:
+            fail(f"[sp] sp=2 {tag}: a second run differs in {len(bad)} tensors "
+                 f"(worst {worst:.3e})")
+        st = a[0]["cases"][tag]["stats"]
+        log(f"[sp] sp=2 (two gloo ranks on cuda:0, blocks {tuple(a[0]['block'])} of "
+            f"the fixed batch) against world 1, one {tag} step: loss "
+            f"{loss:.9g} vs {refs[tag][0]:.9g} (rel {loss_rel:.2e}, tolerance "
+            f"{SP_LOSS_RTOL[tag.split()[0]]:g}); update of all weights and statistics "
+            f"within {upd:.3e} relative L2 (tolerance "
+            f"{SP_UPDATE_RTOL[tag.split()[0]]:g}); both ranks and a second run "
+            f"bitwise equal; launches per rank {a[0]['cases'][tag]['launches']}; "
+            f"halo exchanges {st['halo_exchanges']} ({st['halo_bytes'] / 1e6:.3f} MB "
+            f"sent per rank), pooled all-reduces {st['pool_allreduces']} per step"
+            + (f"; step {a[0]['cases'][tag]['step_ms']:.1f} / "
+               f"{a[1]['cases'][tag]['step_ms']:.1f} ms (ranks 0 / 1)"
+               if "step_ms" in a[0]["cases"][tag] else ""))
+    bad, worst = snap_diff(torch.load(a[0]["cases"]["f32"]["state"]),
+                           torch.load(a[0]["cases"]["f32 remat"]["state"]))
+    if bad:
+        fail(f"[sp] sp=2: the remat step differs from the plain step in {len(bad)} "
+             f"tensors (worst {worst:.3e})")
+    _, loss, loss_rel, upd = _check_sp_case(
+        "f32", four, {"bn": BN_LAYERS, "bn_backward": BN_LAYERS, "context": 1},
+        refs["small"], old, "dp=2 x sp=2")
+    log(f"[sp] sp=2: the remat step bitwise equal to the plain step; dp=2 x sp=2 "
+        f"(4 gloo ranks on cuda:0, rank = d * sp + s) at {SP_SMALL} against world "
+        f"1: loss rel {loss_rel:.2e}, update rel {upd:.3e}, 4 ranks bitwise equal")
+    errs = [out["context_err"] for out in a]
+    log(f"[sp] context_fused on each shard's rows of {SP_CONTEXT_SHAPE} (rows "
+        f"[row0, row0 + {SP_CONTEXT_SHAPE[1] // 2}) of the whole map's uh) against "
+        f"reference_context, f32 and bf16: worst abs err {max(errs):.3e} (rtol/atol "
+        f"f32 {TOL['f32']}, bf16 {TOL['bf16']})")
+    h = a[0]["halo"]
+    log(f"[sp] halo at sp=2, {h['exchanges']} exchanges of one f32 step (forward "
+        f"and backward) replayed alone: {h['ms']:.2f} ms, "
+        f"{h['bytes_sent_per_rank'] / 1e6:.3f} MB sent per rank (gloo through "
+        f"pinned host buffers: not NCCL's speed)")
+    log(f"[sp] UCF-QNRF scale {SP_UCF}, BN f32 step: sp=1 {ucf1['ms']:.1f} ms, peak "
+        f"{ucf1['peak_gib']:.2f} GiB; sp=2 (two ranks time-sharing the card) "
+        + " / ".join(f"{out['ucf']['ms']:.1f} ms" for out in a) + ", peak per rank "
+        + " / ".join(f"{out['ucf']['peak_gib']:.2f} GiB" for out in a))
+    for r, out in enumerate(a):
+        ev = out["eval"]
+        for k in ("mae", "mse"):
+            rel = abs(ev[k] - one[k]) / abs(one[k])
+            if rel > EVAL_RTOL or ev["num_images"] != one["num_images"]:
+                fail(f"[sp] eval CLI at --sp 2 (rank {r}): {k} {ev[k]!r} vs world 1 "
+                     f"{one[k]!r} (rel {rel:.2e})")
+        if ev["launches"] != ev["batches"]:
+            fail(f"[sp] eval at --sp 2 rank {r}: context launched {ev['launches']} "
+                 f"times for {ev['batches']} batches")
+    ev = a[0]["eval"]
+    log(f"[sp] eval CLI at --sp 2: MAE {ev['mae']:.9g} MSE {ev['mse']:.9g} over "
+        f"{ev['num_images']} images, world 1 MAE {one['mae']:.9g} MSE "
+        f"{one['mse']:.9g} (rtol {EVAL_RTOL}); context_fused launches per rank "
+        f"{ev['launches']} ({ev['batches']} batches)")
+    log(f"[sp] launches in this phase: {counts}; the phase took "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
+def phase_sp_nccl(work: Path) -> None:
+    """``--sp-nccl``, on a machine with 4 GPUs: torchrun's ranks one per
+    GPU over NCCL (the halo through ``batch_isend_irecv``): dp=1 x sp=2 on
+    2 GPUs (the fixed batch, f32 / f32 remat / bf16; step ms; the halo
+    replayed alone; the UCF-scale image's step ms and peak per rank) and
+    dp=2 x sp=2 on 4 (the fixed batch), each against world 1 on cuda:0 by
+    [sp]'s gates, ranks bitwise, launches exact."""
+    import torch
+
+    from can_tpu_torch.device import use_deterministic
+    from can_tpu_torch.models import CANNet
+
+    if torch.cuda.device_count() < 4:
+        fail(f"--sp-nccl needs 4 GPUs, {torch.cuda.device_count()} visible")
+    use_deterministic()
+    root = train_data(work)
+    sp_dir = work / "sp_nccl"
+    sp_dir.mkdir(exist_ok=True)
+    batch = fixed_batch(root)
+    refs = {}
+    for tag, remat in SP_CASES:
+        loss, sd, _ = ddp_step_state(batch, tag.split()[0], remat, 1)
+        refs[tag] = (loss, sd)
+    step_ms = {}
+    for tag in ("f32", "bf16"):
+        state = _state()
+        from can_tpu_torch.ops import bn_moments as bm
+        from can_tpu_torch.train import make_train_step
+
+        step = make_train_step(bn_ops=bm.make_bn_ops("kernel"),
+                               compute_dtype=torch.bfloat16 if tag == "bf16" else None)
+        step_ms[tag] = time_ms(lambda: step(state, batch), reps=SP_STEP_REPS)
+        del state, step
+    del batch
+    ucf1 = sp_ucf(None)
+    old = {k: v.detach().cpu().clone() for k, v in
+           CANNet(device="cpu", seed=SEED, batch_norm=True).state_dict().items()}
+    torch.cuda.empty_cache()
+    base = {"root": str(root), "sp": 2, "nccl": True}
+    two = sp_ranks(work, sp_dir, "nccl_sp2", dict(base, dp=1, ucf=True), 2)
+    four = sp_ranks(work, sp_dir, "nccl_dp2_sp2", dict(base, dp=2), 4)
+    for label, ranks in (("NCCL sp=2", two), ("NCCL dp=2 x sp=2", four)):
+        for r, out in enumerate(ranks):
+            topo = out["topology"]
+            if (topo["backend"], out["halo_path"], out["mesh"]) != (
+                    "nccl", "nccl", list(divmod(r, 2))) or topo["device"] != f"cuda:{r}":
+                fail(f"[sp] {label} rank {r}: topology {topo}, halo "
+                     f"{out['halo_path']}, mesh {out['mesh']}")
+        for tag, remat in SP_CASES:
+            want_launch = {"bn": BN_LAYERS * (2 if remat else 1),
+                           "bn_backward": BN_LAYERS, "context": 2 if remat else 1}
+            _, loss, loss_rel, upd = _check_sp_case(tag, ranks, want_launch, refs[tag],
+                                                    old, label)
+            st = ranks[0]["cases"][tag]["stats"]
+            ms = ranks[0]["cases"][tag].get("step_ms")
+            log(f"[sp] {label} (one GPU per rank, blocks "
+                f"{tuple(ranks[0]['block'])}) against world 1, one {tag} step: "
+                f"loss rel {loss_rel:.2e}, update rel {upd:.3e}, ranks bitwise; "
+                f"halo {st['halo_exchanges']} exchanges, {st['halo_bytes'] / 1e6:.3f} "
+                f"MB sent per rank; pooled all-reduces {st['pool_allreduces']}"
+                + (f"; step {ms:.1f} ms vs world 1 {step_ms[tag]:.1f} ms"
+                   if ms is not None and tag in step_ms else ""))
+    h = two[0]["halo"]
+    log(f"[sp] NCCL sp=2: {h['exchanges']} halo exchanges of one f32 step "
+        f"replayed alone {h['ms']:.2f} ms ({h['bytes_sent_per_rank'] / 1e6:.3f} "
+        f"MB per rank); {SP_UCF} BN f32: sp=1 {ucf1['ms']:.1f} ms, "
+        f"{ucf1['peak_gib']:.2f} GiB; sp=2 "
+        + " / ".join(f"{out['ucf']['ms']:.1f} ms" for out in two) + ", peak "
+        + " / ".join(f"{out['ucf']['peak_gib']:.2f} GiB" for out in two)
+        + " per rank")
+
+
 def main(argv) -> int:
     import torch
 
     measure_only = argv == ["--measure-only"]
+    sp_only = argv == ["--sp-only"]
+    sp_nccl = argv == ["--sp-nccl"]
     worker = len(argv) == 2 and argv[0] == "--ddp-worker"
-    if argv and not (measure_only or worker):
-        fail(f"unknown arguments {argv} (none, --measure-only, or "
-             f"--ddp-worker SPEC)")
+    if argv and not (measure_only or sp_only or sp_nccl or worker):
+        fail(f"unknown arguments {argv} (none, --measure-only, --sp-only, "
+             f"--sp-nccl, or --ddp-worker SPEC)")
 
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke run needs a GPU")
@@ -3830,6 +4370,11 @@ def main(argv) -> int:
     work = ROOT / "build" / "chip_smoke"
     work.mkdir(parents=True, exist_ok=True)
     phase_build()
+    if sp_only or sp_nccl:
+        (phase_sp if sp_only else phase_sp_nccl)(work)
+        log(f"[smoke] {argv[0]} done in {time.perf_counter() - t_start:.1f}s")
+        log(card)
+        return 0
     if measure_only:
         rows = {(shape, count, name): bn_time(y, m, g1, g2, peaks, f"{shape} {name}")
                 for shape, count, name, y, m, g1, g2 in bn_cases() if count}
@@ -3878,7 +4423,7 @@ def main(argv) -> int:
              "s2d": phase_s2d(work), "vgg16": phase_vgg16(work),
              "slice5": phase_slice5(work), "legacy": phase_legacy(work),
              "prepare": phase_prepare(work), "golden": phase_golden(work),
-             "ddp": phase_ddp(work)}
+             "ddp": phase_ddp(work), "sp": phase_sp(work)}
     counts = {k: sum(p[k] for p in paths.values())
               for k in ("bn", "bn_backward", "context")}
 

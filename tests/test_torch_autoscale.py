@@ -8,7 +8,9 @@ AOT case), TestProbeBackoff, TestProbeIsolation, TestDrainingWatchdog,
 TestAutoscalerUnit, TestAutoscalerLive, TestChaos and TestCLI, by name
 (the AOT, obs, Prometheus and report tests wait for ROADMAP Queue 1 items
 3c and 5; the paging test here holds the trigger, the incident manager's
-once-per-cooldown is item 5's).  Every hang and cooldown is 2 s or less.
+once-per-cooldown is item 5's).  Every cooldown is 2 s or less; the
+chaos hang is twice a watchdog deadline priced from warm launches timed
+on the host (2 s on a quiet one).
 """
 
 import gc
@@ -46,6 +48,10 @@ from can_tpu_torch.utils.torch_import import state_dict_from_jax_params
 from tests.test_torch_model import jax_params
 
 CPU = torch.device("cpu")
+# the hang test's watchdog deadline in warm survivor launches: the hung
+# batch's detour (the deadline, then a few survivor launches) stays
+# well inside the hang of twice the deadline
+WATCHDOG_LAUNCHES = 25
 
 
 @pytest.fixture(scope="module")
@@ -881,21 +887,35 @@ class TestChaos:
 
     def test_seeded_hang_watchdog_within_priced_deadline(
             self, params, monkeypatch):
-        """A seeded replica_hang (replica 0, 2 s — twice the 1 s watchdog
-        deadline) is wedged and its batch completes on the SURVIVING
-        replica before the hang would have returned.  The deadline leaves
-        a warm 64 px launch (~20 ms alone) room on a loaded test host: a
-        survivor launch past it is wedged too, and the batch rejected."""
-        hang_s = 2.0
-        self._with_faults(monkeypatch, {"faults": [
-            {"kind": "replica_hang", "replica": 0, "batch": 1,
-             "delay_s": hang_s}]})
+        """A seeded replica_hang (replica 0, twice the watchdog deadline)
+        is wedged and its batch completes on the SURVIVING replica before
+        the hang would have returned.
+
+        The deadline follows the host: WATCHDOG_LAUNCHES times the slowest
+        of a few warm full-batch launches timed on the survivor just
+        before (at least 1 s), and the hang twice that.  A survivor
+        launch past the deadline would be wedged too and the batch
+        rejected, and the hung batch's detour takes the deadline plus a
+        few launches, so a fixed deadline held only on a quiet host."""
         events = Events()
         fleet, svc = make_fleet_service(
             params, telemetry=events, self_heal=True,
-            probe_cooldown_s=0.3, maintain_interval_s=0.05,
-            watchdog_default_s=1.0)
+            probe_cooldown_s=0.3, maintain_interval_s=0.05)
         img = make_image()
+        survivor = fleet.replicas[1]
+        batch = one_batch(img, n=2)  # the service's max_batch
+        launches = []
+        with survivor.lock:  # the workers are not started yet; be explicit
+            for _ in range(3):
+                t0 = time.perf_counter()
+                survivor.engine.predict_batch(batch)
+                launches.append(time.perf_counter() - t0)
+        watchdog_s = max(1.0, WATCHDOG_LAUNCHES * max(launches))
+        hang_s = 2.0 * watchdog_s
+        fleet.watchdog_default_s = watchdog_s
+        self._with_faults(monkeypatch, {"faults": [
+            {"kind": "replica_hang", "replica": 0, "batch": 1,
+             "delay_s": hang_s}]})
         inj = faults.active_injector()
         with svc:
             tickets = []
@@ -907,7 +927,7 @@ class TestChaos:
             assert inj.fired, "replica 0 never pulled a batch"
             t_seen = time.time()
             tickets.append(svc.submit(img, deadline_ms=120_000))
-            results = [t.result(timeout=30.0) for t in tickets]
+            results = [t.result(timeout=30.0 + hang_s) for t in tickets]
             dt = time.time() - t_seen
         assert len(results) == len(tickets)  # zero lost, the hung batch too
         assert dt < hang_s, dt  # never waited the hang out

@@ -51,7 +51,9 @@ def test_port_modules_are_found():
               # the DDP slice and the VGG-16 converter
               "can_tpu_torch.parallel", "can_tpu_torch.parallel.runtime",
               "can_tpu_torch.parallel.mesh", "can_tpu_torch.parallel.data_parallel",
-              "can_tpu_torch.tools.convert_vgg16"):
+              "can_tpu_torch.tools.convert_vgg16",
+              # spatial parallelism
+              "can_tpu_torch.parallel.spatial"):
         assert m in mods
     assert (PKG / "csrc" / "context_fused.cu").is_file()
 

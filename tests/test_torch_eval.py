@@ -117,7 +117,7 @@ def test_show_index_writes_three_readable_pngs(data, he_npz, tmp_path):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--sp", "2"], "Queue 1 item 4"),
+    (["--sp", "2"], "--sp 2 does not divide the process count 1"),
     (["--torch-pth", "a.pth", "--params-npz", "b.npz"], "OR"),
     (["--params-npz", "x.npz", "--syncBN"], "drop --syncBN"),
     (["--params-npz", "x.npz", "--epoch", "3"], "--epoch"),

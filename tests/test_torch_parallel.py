@@ -313,17 +313,24 @@ def test_sharded_batcher_quantum_checks_match_jax(kw):
 
 # -- the mesh and the CLI's agreement plumbing ----------------------------------
 def test_mesh_is_the_world():
+    """One process is a (1, 1) mesh; sp must divide the process count
+    (tests/test_torch_spatial.py builds (1, 2), (2, 2) and (1, 4) meshes
+    of gloo processes)."""
     mesh = make_mesh()
     assert (mesh.dp, mesh.sp, mesh.shape) == (1, 1, {"data": 1, "spatial": 1})
+    assert (mesh.d, mesh.s, mesh.spatial_group, mesh.data_group) == (0, 0, None, None)
     assert pmesh.DATA_AXIS == "data" and pmesh.SPATIAL_AXIS == "spatial"
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
+    with pytest.raises(ValueError, match="not divisible by sp=2"):
         make_mesh(sp=2)
     with pytest.raises(ValueError, match="processes"):
         make_mesh(dp=2)
     mesh, per_proc, dp = common.build_mesh_and_batch(8)
     assert (per_proc, dp) == (8, 1)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
+    with pytest.raises(ValueError, match="--sp 4 does not divide the process count 1"):
         common.build_mesh_and_batch(8, sp=4)
+    # rank = d * sp + s, JAX's (dp, sp) device order
+    big = pmesh.Mesh(dp=2, sp=4, d=1, s=2)
+    assert [big.rank_of(d, s) for d in range(2) for s in range(4)] == list(range(8))
 
 
 def test_launch_cap_and_remat_scale_with_the_shards():
