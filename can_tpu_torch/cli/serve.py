@@ -34,6 +34,15 @@ the autoscaler (``serve/autoscale.py``).  Every flag is validated before
 the weights load, in the JAX CLI's order and with its messages; AOT
 bundles (``--aot-bundle/--aot-bake``) are refused, naming ROADMAP Queue 1
 item 3c.
+
+Telemetry (``obs/``) is off unless asked for: ``--telemetry-dir`` writes
+``telemetry.host{k}.jsonl`` (``serve.*`` events, request span trees,
+heartbeats), ``--metrics-port`` serves Prometheus ``/metrics`` with the
+service's ``/stats`` counters, ``--incident-dir`` dumps a bundle on a
+replica quarantine, a fast SLO burn or SIGTERM, ``--slo-spec`` grades
+the traffic live (the autoscaler reads its burn gauges), and
+``--collector-push`` streams the bus to ``python -m
+can_tpu_torch.cli.collect``.
 """
 
 from __future__ import annotations
@@ -185,6 +194,35 @@ def parse_args(argv=None):
                    choices=list(PLATFORMS),
                    help="default/gpu: the CUDA device (exit non-zero without "
                         "one); cpu: run on the CPU")
+    p.add_argument("--telemetry-dir", type=str, default="",
+                   help="write serve.request/serve.batch/serve.reject "
+                        "JSONL here (tools/telemetry_report.py summarises)")
+    p.add_argument("--telemetry-heartbeat-s", type=float, default=60.0)
+    p.add_argument("--metrics-port", type=int, default=None,
+                   help="serve Prometheus-text /metrics + /healthz on this "
+                        "port (0 = ephemeral): the service's /stats "
+                        "counters (requests, rejects, queue depth, "
+                        "latency percentiles) in the SAME format and "
+                        "labels as the train CLI's gauges — one scrape "
+                        "config covers training and serving")
+    p.add_argument("--metrics-host", type=str, default="127.0.0.1",
+                   help="bind address for --metrics-port")
+    p.add_argument("--collector-push", type=str, default="",
+                   metavar="URL",
+                   help="stream telemetry to a FleetCollector "
+                        "(can_tpu_torch.cli.collect) at URL — best-effort "
+                        "batched JSONL over HTTP")
+    p.add_argument("--incident-dir", type=str, default="",
+                   help="arm the incident layer: a replica quarantine, a "
+                        "fast SLO burn, or a SIGTERM dumps a "
+                        "self-contained bundle (flight-recorder ring + "
+                        "gauges + live serve stats + stacks) here — see "
+                        "obs/incidents.py")
+    p.add_argument("--slo-spec", type=str, default="",
+                   help="JSON SLO spec (slo_spec.json): serve p99 vs "
+                        "deadline, reject rate, ... evaluated live as "
+                        "multi-window burn rates; can_tpu_slo_* gauges "
+                        "on /metrics are the autoscaler's signal")
     return p.parse_args(argv)
 
 
@@ -331,7 +369,7 @@ def build_service(args, telemetry=None):
     else:
         engine = ServeEngine(state_dict, device=device,
                              serve_dtype=args.serve_dtype,
-                             compute_dtype=compute_dtype)
+                             compute_dtype=compute_dtype, telemetry=telemetry)
     high_water = (args.high_water if args.high_water is not None
                   else max(1, (3 * args.queue_capacity) // 4))
     shapes = args.bucket_shapes
@@ -376,7 +414,11 @@ def build_service(args, telemetry=None):
             p99_high_s=(args.deadline_ms / 1e3
                         if args.deadline_ms else None),
             interval_s=args.autoscale_interval_s)
-        service.autoscaler = Autoscaler(service, policy)
+        # the SLO engine's can_tpu_slo_alerting gauges (--slo-spec) are
+        # the autoscaler's burn signal
+        service.autoscaler = Autoscaler(
+            service, policy,
+            gauges=getattr(telemetry, "_gauge_sink", None))
         print(f"[serve] autoscaler armed: {policy.min_replicas}.."
               f"{policy.max_replicas} replicas, "
               f"eval every {policy.interval_s:g}s")
@@ -384,24 +426,45 @@ def build_service(args, telemetry=None):
 
 
 def main(argv=None) -> int:
+    from can_tpu_torch.cli.test import validate_params_source
+    from can_tpu_torch.cli.train import build_telemetry, validate_incident_args
+    from can_tpu_torch.obs import shutdown_telemetry
     from can_tpu_torch.serve import serve_http
 
     args = parse_args(argv)
-    service = build_service(args)
-    with service:
-        httpd = serve_http(service, host=args.host, port=args.port)
-        endpoints = "POST /predict, GET /healthz, GET /stats"
-        if args.replicas > 1:
-            endpoints += ", POST /rollout"
-        print(f"[serve] listening on http://{args.host}:"
-              f"{httpd.server_address[1]} ({endpoints})", flush=True)
-        try:
-            httpd.serve_forever()
-        except KeyboardInterrupt:
-            print("[serve] shutting down")
-        finally:
-            httpd.server_close()
-    return 0
+    # every check that needs no device runs first: a bad flag, spec or
+    # incident dir, or a missing card, costs no telemetry and no CUDA work
+    # (on a copy: build_service validates again and defaults the dir)
+    validate_params_source(argparse.Namespace(**vars(args)))
+    validate_args(args)
+    validate_incident_args(args)
+    try:
+        resolve_device(args.platform)
+    except NoCudaDeviceError as e:
+        raise SystemExit(f"[serve] {e}")
+    telemetry, heartbeat, exporter = build_telemetry(args, host_id=0)
+    try:
+        service = build_service(args, telemetry=telemetry)
+        if exporter is not None:
+            # serve's counters in the same scrape as the bus gauges
+            exporter.add_stats_source("serve", service.stats)
+        with service:
+            httpd = serve_http(service, host=args.host, port=args.port)
+            endpoints = "POST /predict, GET /healthz, GET /stats"
+            if args.replicas > 1:
+                endpoints += ", POST /rollout"
+            print(f"[serve] listening on http://{args.host}:"
+                  f"{httpd.server_address[1]} ({endpoints})", flush=True)
+            try:
+                httpd.serve_forever()
+            except KeyboardInterrupt:
+                print("[serve] shutting down")
+            finally:
+                httpd.server_close()
+        return 0
+    finally:
+        # the one teardown order shared with the SIGTERM path
+        shutdown_telemetry(telemetry, heartbeat=heartbeat, exporter=exporter)
 
 
 if __name__ == "__main__":

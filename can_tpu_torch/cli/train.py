@@ -41,8 +41,10 @@ it.  ``--sp K`` splits each image's height over K processes
 shards, the ranks of a replica load the same images and keep their rows
 of them, bucket H is padded to multiples of 8*K and at least 16*K, the
 step sums its gradients over the world (no DDP) and the lr scales with
-dp.  Elastic training and telemetry come with later slices (ROADMAP
-Queue 1).
+dp.  Elastic training and this CLI's telemetry flags come with later
+slices (ROADMAP Queue 1 items 6 and 5b); the telemetry wiring the serve
+CLI uses already lives here (``validate_incident_args``,
+``build_telemetry``).
 """
 
 from __future__ import annotations
@@ -256,6 +258,131 @@ def validate(args):
             if drifted:
                 print(f"[resume] config drift allowed: {', '.join(drifted)}")
     return roots
+
+
+def validate_incident_args(args) -> None:
+    """Pure arg/path validation for the incident/SLO flags — run BEFORE
+    any CUDA work or rendezvous (a typo'd spec must cost nothing, the same
+    contract as the dataset path checks).  Shared by the CLIs."""
+    spec_path = getattr(args, "slo_spec", "")
+    if spec_path:
+        from can_tpu_torch.obs.slo import load_slo_spec
+
+        try:
+            # stash the PARSED spec: build_telemetry runs later, and
+            # re-reading the file there would reopen the failure window
+            # this validation closes (a spec replaced mid-launch)
+            args._slo_spec_parsed = load_slo_spec(spec_path)
+        except OSError as e:
+            raise SystemExit(f"--slo-spec: cannot read {spec_path}: {e}")
+        except ValueError as e:
+            raise SystemExit(f"--slo-spec: {e}")
+    incident_dir = getattr(args, "incident_dir", "")
+    if incident_dir:
+        try:
+            os.makedirs(incident_dir, exist_ok=True)
+        except OSError as e:
+            raise SystemExit(f"--incident-dir: cannot create "
+                             f"{incident_dir}: {e}")
+
+
+def build_telemetry(args, *, host_id: int, logger=None,
+                    install_signals: bool = True):
+    """The CLIs' shared wiring: per-host JSONL sink (``--telemetry-dir``),
+    MetricLogger adapter, heartbeat thread, and — with ``--metrics-port``
+    — an in-memory gauge sink plus the live Prometheus exporter
+    (obs/exporter.py).  ``--incident-dir`` adds the flight recorder +
+    IncidentManager (+ the SIGTERM/preemption hook, unless
+    ``install_signals=False`` — in-process tests must not retarget the
+    interpreter's signal table); ``--slo-spec`` adds the SLO burn-rate
+    engine.  Returns ``(telemetry, heartbeat_or_None, exporter_or_None)``
+    — tear the stack down with ``obs.shutdown_telemetry``.
+
+    ``--collector-push URL`` adds a best-effort push sink streaming the
+    bus to a FleetCollector; ``CAN_TPU_HOST_ID`` overrides the host id on
+    every emitted event (several processes on one machine all read rank
+    0 — the fleet view needs them distinct).
+
+    The bus carries ``_gauge_sink`` (the autoscaler reads
+    ``can_tpu_slo_alerting`` from it), ``incidents`` and ``spans`` (the
+    serving path's request and rollout spans).  ``ledger`` stays None:
+    the cost ledger and the step trace window (the reference's
+    ``trace_window=``) are ROADMAP Queue 1 item 5b, so the fleet keeps
+    its fixed watchdog floor, as the reference's does with no ledger."""
+    from can_tpu_torch import obs
+
+    env_hid = os.environ.get("CAN_TPU_HOST_ID", "")
+    if env_hid:
+        try:
+            host_id = int(env_hid)
+        except ValueError:
+            raise SystemExit(f"CAN_TPU_HOST_ID: not an int: {env_hid!r}")
+    extra = [obs.MetricLoggerSink(logger)] if logger is not None else []
+    collector_url = getattr(args, "collector_push", "")
+    if collector_url:
+        extra.append(obs.CollectorPushSink(collector_url))
+    exporter = None
+    gauges = None
+    telemetry_dir = getattr(args, "telemetry_dir", "")
+    metrics_port = getattr(args, "metrics_port", None)
+    incident_dir = getattr(args, "incident_dir", "")
+    slo_spec_path = getattr(args, "slo_spec", "")
+    if metrics_port is not None or incident_dir or slo_spec_path:
+        # the gauge sink exists for ANY of its three consumers: the
+        # scrape endpoint, the bundle's gauges.json snapshot, and the
+        # SLO layer's can_tpu_slo_* exports
+        gauges = obs.GaugeSink()
+        extra.append(gauges)
+    if metrics_port is not None:
+        # a port that cannot bind raises here: the CLI exits non-zero
+        exporter = obs.MetricsExporter(
+            gauges, host=getattr(args, "metrics_host", "127.0.0.1"),
+            port=metrics_port).start()
+        print(f"[metrics] /metrics + /healthz on "
+              f"http://{exporter.host}:{exporter.port}")
+    recorder = None
+    if incident_dir:
+        recorder = obs.FlightRecorder()
+        extra.append(recorder)
+    if telemetry_dir:
+        tel = obs.open_host_telemetry(telemetry_dir, host_id=host_id,
+                                      extra_sinks=extra)
+    else:
+        tel = obs.Telemetry(extra, host_id=host_id)
+    tel._gauge_sink = gauges
+    # the span tracer is armed when any consumer exists (JSONL artifact,
+    # live scraper, incident recorder, SLO engine); a default run
+    # constructs none, so nothing new touches its hot path
+    if telemetry_dir or exporter is not None or incident_dir or slo_spec_path:
+        tel.spans = obs.SpanTracer(tel)
+    run_config = {k: v for k, v in vars(args).items()
+                  if isinstance(v, (str, int, float, bool, type(None)))}
+    if slo_spec_path:
+        # the spec validate_incident_args already parsed; loaded here
+        # only for callers that skipped validation
+        spec = getattr(args, "_slo_spec_parsed", None)
+        if spec is None:
+            spec = obs.load_slo_spec(slo_spec_path)
+        tel.watchers.append(obs.SloEngine(spec, tel))
+    if incident_dir:
+        manager = obs.IncidentManager(tel, recorder,
+                                      incident_dir=incident_dir,
+                                      gauges=gauges,
+                                      run_config=run_config,
+                                      host_id=host_id)
+        tel.watchers.append(manager)
+        tel.incidents = manager
+        if install_signals:
+            # SIGTERM/preemption: dump + flush a bundle, then SystemExit
+            # into the CLI's finally -> shutdown_telemetry (same order as
+            # a clean exit); None off the main thread
+            obs.install_sigterm_handler(manager)
+    tel.emit("run", config=run_config)
+    # heartbeat whenever an artifact OR a live consumer wants liveness
+    hb = (obs.Heartbeat(tel, args.telemetry_heartbeat_s)
+          if (telemetry_dir or exporter is not None or incident_dir
+              or slo_spec_path) else None)
+    return tel, hb, exporter
 
 
 def train(args) -> dict:

@@ -13,9 +13,9 @@ order:
    still read the final gauge values the watcher flush just produced.
 
 Idempotent — a double call (signal during teardown) is a no-op.  The
-telemetry stack it closes comes with the rest of ``obs/`` (ROADMAP
-Queue 1 item 5); ``supervised_loop`` runs the serving fleet's
-maintenance thread and the autoscaler today.
+serve CLI tears its ``build_telemetry`` stack down with it;
+``supervised_loop`` runs the serving fleet's maintenance thread and the
+autoscaler.
 """
 
 from __future__ import annotations

@@ -248,10 +248,12 @@ def make_spatial_ops(mesh: Mesh, feat_hw: Tuple[int, int], *, device,
                              f"sp={mesh.sp}")
         ph = adaptive_pool_matrix(hg, sh, x.device)[:, mesh.s * hl:(mesh.s + 1) * hl]
         pw = adaptive_pool_matrix(x.shape[-2], sw, x.device)
-        # the partials are summed in f32 and rounded once: the unsharded
-        # pool's rounding (JAX rounds each partial to the compute dtype)
+        # the reference's rounding: each shard's partial is rounded to
+        # the compute dtype (its contraction returns x.dtype) before the
+        # group sum, which runs in f32 and is rounded once more; in f32
+        # both roundings are the identity
         part = torch.einsum("nhwc,ph,qw->npqc", x.float(), ph, pw)
-        return _spatial_sum(part, mesh).to(x.dtype)
+        return _spatial_sum(part.to(x.dtype).float(), mesh).to(x.dtype)
 
     return LocalOps(conv2d=conv2d_sp, adaptive_pool=adaptive_pool_sp,
                     global_hw=tuple(feat_hw),

@@ -6,9 +6,8 @@ seconds when the queue deepens and leave when the load does.  This
 module is the control loop over signals the stack already exports —
 outstanding load (the queue's shedding signal), fleet work-queue depth,
 the request-latency reservoir's p99 against the deployment's deadline,
-and the SLO engine's burn-rate alerts (``can_tpu_slo_alerting`` on a
-gauge sink; ``gauges=None`` until the port's ``obs`` brings one, ROADMAP
-Queue 1 item 5) — acting through ``FleetEngine.add_replica`` /
+and the SLO engine's burn-rate alerts (``can_tpu_slo_alerting`` on the
+gauge sink the serve CLI hands it from ``--slo-spec``) — acting through ``FleetEngine.add_replica`` /
 ``remove_replica``, which carry the rollout-style zero-drop choreography
 (a new replica warms BEFORE joining dispatch; a removed one drains its
 in-flight batch first).
@@ -96,8 +95,7 @@ def decide(signals: dict, policy: AutoscalePolicy) -> Optional[str]:
 class Autoscaler:
     """Drives a ``CountService``-fronted ``FleetEngine`` from its gauges.
 
-    ``gauges``: a gauge sink with ``snapshot()`` (optional; the JAX
-    package's ``obs.exporter.GaugeSink``) — the SLO engine's
+    ``gauges``: an ``obs.exporter.GaugeSink`` (optional) — the SLO engine's
     ``can_tpu_slo_alerting`` labelled gauges become the burn signal.
     ``clock`` is injectable for deterministic tests; ``tick()``
     can be driven directly without the thread."""

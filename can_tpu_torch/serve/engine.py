@@ -22,6 +22,10 @@ batches, the CANNet forward, then the masked per-image count reduction
   weights with no new signature; a mismatched tree is refused;
 * ``release_buffers()``: drop the device weights.
 
+With a ``telemetry`` bus the engine emits the reference's events: one
+``compile`` per new batch signature (``obs.RecompileTracker``'s payload:
+the signature's first call, timed) and one ``serve.warmup`` per warmup.
+
 When the forward computes in f32 (f32 and int8) the engine turns TF32
 off — ``torch.backends.cudnn.allow_tf32 = False`` and matmul precision
 ``"highest"``: cuDNN runs f32 convolutions in TF32 by default, which
@@ -49,7 +53,7 @@ from can_tpu_torch.serve.quant import (
     quantize_tree,
 )
 from can_tpu_torch.train.loss import density_counts
-from can_tpu_torch.train.steps import normalize_on_device
+from can_tpu_torch.train.steps import batch_signature, normalize_on_device
 from can_tpu_torch.utils.torch_import import is_batch_norm_layout
 
 SWAP_MISMATCH = (
@@ -88,12 +92,14 @@ class ServeEngine:
     caller resolves it, ``device.resolve_device``).
     name: the engine's program name; a fleet names each replica
       incarnation apart (``f"{name}_r{k}"``), and stream pins hold it.
+    telemetry: optional bus for ``compile`` and ``serve.warmup`` events.
     """
 
     def __init__(self, state_dict, *, device, serve_dtype: str = "f32",
                  compute_dtype=None, quantized: bool = False, ds: int = 8,
-                 name: str = "serve_predict"):
+                 name: str = "serve_predict", telemetry=None):
         self.name = name
+        self.telemetry = telemetry
         self.device = torch.device(device)
         self.serve_dtype = serve_dtype
         self.ds = int(ds)
@@ -167,8 +173,10 @@ class ServeEngine:
             raise RuntimeError("serve engine buffers released — build a "
                                "fresh engine to serve again")
         sig = (tuple(batch.image.shape), str(batch.image.dtype))
-        self._last_compiled = sig not in self._signatures
+        first = sig not in self._signatures
+        self._last_compiled = first
         self._signatures.add(sig)
+        t0 = time.perf_counter()
         with self._lock, torch.inference_mode():
             t = {"image": self._put_batch(batch.image),
                  "dmap": self._put_batch(batch.dmap),
@@ -181,7 +189,16 @@ class ServeEngine:
             if want_density:
                 mask = t["pixel_mask"] * t["sample_mask"][:, None, None, None]
                 density = (pred.float() * mask).cpu().numpy()
-            return counts.cpu().numpy(), density
+            counts = counts.cpu().numpy()
+        if first and self.telemetry is not None:
+            fields = {k: getattr(batch, k) for k in
+                      ("image", "dmap", "pixel_mask", "sample_mask")}
+            self.telemetry.emit(
+                "compile", name=self.name,
+                signature=[list(s) for s in batch_signature(fields)],
+                seconds=round(time.perf_counter() - t0, 4),
+                n_signatures=len(self._signatures))
+        return counts, density
 
     def swap_params(self, state_dict, *, quantized: bool = False) -> None:
         """Replace the served weights (the blue/green flip).  The new tree
@@ -234,6 +251,9 @@ class ServeEngine:
                                   np.float32)
                     self.predict_batch(pad_batch([(img, dm)], (bh, bw), size,
                                                  [False], self.ds))
-        return {"shapes": len(shapes), "sizes": len(sizes),
-                "compiles": self.compile_count - before,
-                "seconds": round(time.perf_counter() - t0, 3)}
+        report = {"shapes": len(shapes), "sizes": len(sizes),
+                  "compiles": self.compile_count - before,
+                  "seconds": round(time.perf_counter() - t0, 3)}
+        if self.telemetry is not None:
+            self.telemetry.emit("serve.warmup", **report)
+        return report

@@ -52,9 +52,10 @@ event kinds and payloads).
 
 * **The watchdog** — every launch carries a deadline
   (``priced_deadline_s``: the cost ledger's measured time x slack when
-  the telemetry has a ``ledger``; until the port's ``obs`` has one,
-  ``watchdog_default_s`` for a warmed signature and ``watchdog_compile_s``
-  for an unwarmed one, as the JAX fleet does without a ledger).  An
+  the telemetry has a ``ledger``, which it has not until ROADMAP Queue 1
+  item 5b; without one, ``watchdog_default_s`` for a warmed signature and
+  ``watchdog_compile_s`` for an unwarmed one, as the JAX fleet does
+  without a ledger).  An
   overdue replica is marked ``wedged``, its batch re-dispatched under the
   redispatch-once rule, and the replica sent to probation; its thread is
   abandoned, never waited on.  On a GPU this contains a stalled HOST
@@ -103,7 +104,7 @@ REPLICA_WEDGED = "wedged"        # watchdog-declared hung launch
 REPLICA_DRAINING = "draining"    # scale-down: finish in-flight, exit
 
 # JAX's constructor defaults, fixed here until a caller needs another
-# value (item 5's cost ledger is the first that could price the floor):
+# value (item 5b's cost ledger is the first that could price the floor):
 # the age past which queued work is served regardless of cost, the
 # deadline margin that makes work urgent, the probation backoff's growth
 # per failed probe, and the least priced watchdog deadline
@@ -374,7 +375,7 @@ class FleetEngine:
         return ServeEngine(self._host_q if tree is None else tree,
                            device=device, serve_dtype=self.serve_dtype,
                            compute_dtype=self._compute_dtype, ds=self.ds,
-                           quantized=True, name=name)
+                           quantized=True, name=name, telemetry=self.telemetry)
 
     def _emit(self, kind: str, **payload) -> None:
         if self.telemetry is not None:
@@ -1067,6 +1068,9 @@ class FleetEngine:
         with self._rollout_lock:
             t0 = time.perf_counter()
             gen = self.generation + 1
+            spans = getattr(self.telemetry, "spans", None)
+            trace_id = (spans.new_trace_id(f"rollout-g{gen}")
+                        if spans is not None else None)
             # 1. free guards first — a refused rollout does no device
             #    work: the staging grid must exist, and a checkpoint
             #    trained as a different model VARIANT must be refused
@@ -1100,6 +1104,7 @@ class FleetEngine:
             #    NaN checkpoints and numeric blowups off-path
             shapes, max_batch, dtypes, sizes = self._warmup_spec
             stage_dev = self.devices[-1]
+            t_stage0 = time.perf_counter()
             with _device_guard(stage_dev):
                 staging = self._engine(stage_dev,
                                        f"{self.name}_staging_g{gen}",
@@ -1109,6 +1114,10 @@ class FleetEngine:
                                                   dtypes=dtypes, sizes=sizes)
                 finally:
                     staging.release_buffers()
+            if spans is not None:
+                spans.emit(trace_id=trace_id, name="rollout.staging",
+                           start=t_stage0, end=time.perf_counter(),
+                           compiles=stage_report["compiles"])
 
             # 5. flip one replica at a time under its dispatch lock: the
             #    other replicas keep pulling from the shared queue, so no
@@ -1117,11 +1126,16 @@ class FleetEngine:
             for r in self.replicas:
                 if r.state != REPLICA_ACTIVE:
                     continue  # quarantined replicas stay on the old gen
+                t_f0 = time.perf_counter()
                 with r.lock, _device_guard(r.device):
                     r.engine.swap_params(qparams, quantized=True)
                     r.generation = gen
                 flipped.append(r.index)
                 self._emit("fleet.replica", **r.snapshot())
+                if spans is not None:
+                    spans.emit(trace_id=trace_id,
+                               name=f"rollout.flip_r{r.index}",
+                               start=t_f0, end=time.perf_counter())
 
             self.generation = gen
             # the host-side staging copy follows the fleet: a replica
@@ -1139,4 +1153,8 @@ class FleetEngine:
                       "config_drift": drifted,
                       "seconds": round(time.perf_counter() - t0, 3)}
             self._emit("fleet.rollout", **report)
+            if spans is not None:
+                spans.emit(trace_id=trace_id, name="rollout",
+                           start=t0, end=time.perf_counter(),
+                           generation=gen)
             return report

@@ -223,6 +223,12 @@ class CountService:
                 # wired by cli/serve.py (or tests): the scale loop lives
                 # and dies with the service
                 auto.start()
+            inc = getattr(self.telemetry, "incidents", None)
+            if inc is not None:
+                # an incident bundle dumped while this service is alive
+                # (replica quarantine, SLO burn, SIGTERM) carries the
+                # live serving stats in its manifest (obs/incidents.py)
+                inc.add_info_source("serve_stats", self.stats)
             self._started = True
         return self
 
@@ -472,21 +478,37 @@ class CountService:
                                            self._fleet.live_tokens())
             self._fleet.submit_work(bucket_hw, batch, requests, pin=pin)
             return
+        t_exec0 = self._clock()  # the device span's start, service clock
         t0 = time.perf_counter()
         counts, density = self.engine.predict_batch(
             batch, want_density=any(r.want_density for r in requests))
         # wall time on perf_counter even under a test's fake clock
         execute_s = time.perf_counter() - t0
         self._complete(bucket_hw, batch, requests, counts, density,
-                       execute_s, self.engine.last_batch_compiled)
+                       execute_s, self.engine.last_batch_compiled,
+                       t_exec0=t_exec0)
 
     def _complete(self, bucket_hw, batch, requests, counts, density,
                   execute_s, compiled, replica=None,
-                  program: str = "serve_predict") -> None:
+                  program: str = "serve_predict", t_exec0=None) -> None:
         """Resolve a launched batch: on the batcher thread, or on a fleet
         replica's worker thread (``replica`` its index, ``program`` its
-        engine's incarnation name, the stream pin's token)."""
+        engine's incarnation name, the stream pin's token).
+
+        With a span tracer on the bus each request emits the reference's
+        span tree: a ``request`` root with ``queue_wait``,
+        ``batch_assembly``, ``device`` and ``respond`` children, on the
+        service clock.  The per-slot respond spans tile the time after
+        the launch back to back, so a late slot's span shows its own
+        resolve cost, not its siblings'."""
+        t_exec1 = self._clock()
+        if t_exec0 is None:
+            # fleet path: the worker measured execute_s on perf_counter;
+            # anchor the device span by subtracting it on the service clock
+            t_exec0 = t_exec1 - execute_s
         now = self._clock()
+        spans = getattr(self.telemetry, "spans", None)
+        t_resp0 = t_exec1
         slots = batch.image.shape[0]
         fill = len(requests) / slots
         ds = self.engine.ds
@@ -519,6 +541,21 @@ class CountService:
                        queue_wait_s=round(queue_wait, 6),
                        assembly_s=round(max(t_ready - t_asm, 0.0), 6),
                        device_s=round(execute_s, 6))
+            if spans is not None:
+                t_done = self._clock()
+                root = spans.emit(trace_id=req.trace_id, name="request",
+                                  start=req.t_submit, end=t_done,
+                                  bucket=list(bucket_hw), ok=True)
+                spans.emit(trace_id=req.trace_id, name="queue_wait",
+                           start=req.t_submit, end=t_asm, parent_id=root)
+                spans.emit(trace_id=req.trace_id, name="batch_assembly",
+                           start=t_asm, end=t_ready, parent_id=root)
+                spans.emit(trace_id=req.trace_id, name="device",
+                           start=t_exec0, end=t_exec0 + execute_s,
+                           parent_id=root, compiled=compiled)
+                spans.emit(trace_id=req.trace_id, name="respond",
+                           start=t_resp0, end=t_done, parent_id=root)
+                t_resp0 = t_done
         # every completed batch feeds the stream ladder's drain pricing
         self.streams.observe_batch(bucket_hw, execute_s, slots)
         # the core's economics: predicted from the valid count alone

@@ -11,6 +11,7 @@ from can_tpu_torch.train.state import (
 )
 from can_tpu_torch.train.steps import (
     NonFiniteLossError,
+    batch_signature,
     make_bucketed_train_step,
     make_eval_step,
     make_train_step,
@@ -20,4 +21,5 @@ from can_tpu_torch.train.steps import (
 __all__ = ["EpochStats", "evaluate", "train_one_epoch", "density_counts",
            "masked_mse_sum", "TrainState", "create_train_state",
            "make_lr_schedule", "make_optimizer", "NonFiniteLossError",
-           "make_bucketed_train_step", "make_eval_step", "make_train_step", "normalize_on_device"]
+           "batch_signature", "make_bucketed_train_step", "make_eval_step",
+           "make_train_step", "normalize_on_device"]

@@ -25,6 +25,20 @@ from can_tpu_torch.data.prefetch import batch_tensors
 from can_tpu_torch.train.loss import density_counts, masked_mse_sum
 
 
+def batch_signature(batch) -> tuple:
+    """The ``(shape, dtype)`` signature of a batch dict of tensors or
+    arrays: sorted ``(name, shape, dtype name)`` triples, the dtype named
+    as numpy names it (``float32``, ``uint8``), so the port's signatures
+    read as the reference's.  ``obs.RecompileTracker`` attributes each new
+    signature's first-call bill to the batch that incurred it (masks and
+    dtypes count too: ``--u8-input`` flips the image dtype without
+    touching the shape)."""
+    return tuple(sorted(
+        (k, tuple(v.shape),
+         str(getattr(v, "dtype", type(v).__name__)).removeprefix("torch."))
+        for k, v in batch.items() if hasattr(v, "shape")))
+
+
 def normalize_on_device(image: torch.Tensor,
                         pixel_mask: torch.Tensor) -> torch.Tensor:
     """uint8 pixels -> ImageNet-normalised f32, on the image's device.

@@ -176,6 +176,33 @@ slice 9, right after phase 3 (before slice 6's phases):
               (warmups, batches, probes, staging, scale-ups); the burst's
               p50/p99 and images/s for 1 against 2 replicas are reported
               beside the card's name and power limit;
+slice 11, right after fleet:
+   obs      — telemetry on the serving path (``obs/``), through the serve
+              CLI's own stack (``parse_args`` -> ``validate_incident_args``
+              -> ``build_telemetry`` -> ``build_service``) on cuda:0 at
+              [serve]'s 384x512 bucket, f32, the He weights.  Window (a):
+              ``--telemetry-dir --metrics-port 0 --slo-spec slo_spec.json
+              --incident-dir --telemetry-heartbeat-s 1`` against the same
+              service with telemetry off, 48 requests one at a time over
+              HTTP each: counts bitwise equal, context launches = the
+              engines' predicts, no new signature after warmup; the JSONL
+              has one ``run``, one ok ``serve.request`` per request, a
+              ``serve.batch`` per batch, a ``request`` span per request
+              with its four children inside it, a heartbeat; ``/metrics``
+              parses as Prometheus text with
+              ``can_tpu_serve_completed_total`` 48; ``serve_p99_deadline``
+              graded and not burning; ``report.summarize`` counts 48; the
+              p50/p99 on against off and the JSONL bytes per request
+              reported.  Window (b): a two-replica fleet on cuda:0 with
+              ``--incident-dir`` under ``replica_crash`` (replica 0, batch
+              2): 0 lost, exactly one ``fleet_quarantine`` bundle written
+              manifest last, its memory snapshot's cuda:0 row with
+              ``bytes_in_use`` > 0, its ``serve_stats`` showing the
+              quarantine, its ring holding the ``fleet.replica`` event;
+              then a spec whose p99 bound is half the fastest request of
+              window (a) burns (``slo.burn``, ``can_tpu_slo_alerting`` on
+              the GaugeSink) and an Autoscaler handed that sink adds a
+              replica with reason ``autoscale:slo_burn``;
 slice 7, last:
    ddp      — data parallelism on the one card.  World 1 over NCCL: the
               train CLI under ``torchrun --standalone --nproc_per_node=1``
@@ -216,12 +243,13 @@ slice 10, after ddp:
 
 ``python3 chip_smoke.py --ddp-worker SPEC`` is one rank of the ddp or sp
 phase (the phase starts it; SPEC is the JSON the phase writes).
+``python3 chip_smoke.py --obs-only`` runs the build and the obs phase alone;
 ``python3 chip_smoke.py --sp-only`` runs the build and the sp phase alone;
 ``python3 chip_smoke.py --sp-nccl``, on a machine with 4 GPUs, runs the
 build and the sp steps over NCCL with one rank per GPU (dp=1 x sp=2 on two,
 with step times, the halo replayed alone and the UCF-scale image; dp=2 x
 sp=2 on four), each against world 1 on cuda:0 by the sp phase's gates.
-Neither prints a result line.
+None of the three prints a result line.
 
 ``python3 chip_smoke.py --measure-only`` runs the build and the timings of
 phases 2 and 4 that reach the kernels only through interfaces older
@@ -1776,6 +1804,335 @@ def phase_fleet(pth: Path, card: str) -> dict:
         f"a predict of a fleet engine (warmups, batches, probes, staging, "
         f"scale-ups); phase {time.perf_counter() - t_phase:.1f} s")
     return {"bn": 0, "bn_backward": 0, "context": total}
+
+
+# [obs]: telemetry on the serving path (slice 11).  The serve CLI's own
+# stack — parse_args -> validate_incident_args -> build_telemetry ->
+# build_service — on cuda:0 at [serve]'s one bucket, against the same
+# service with telemetry off; then the incident path on a two-replica
+# fleet and an SLO burn that scales it
+OBS_REQUESTS = 48
+# span children may start/end within the 6-digit rounding of the root's
+OBS_SPAN_SLACK_S = 2e-6
+OBS_PROM_LINE = r"^[a-zA-Z_:][a-zA-Z0-9_:]*(\{[^}]*\})? (-?[0-9.e+E-]+|NaN|[+-]Inf)$"
+
+
+def obs_http(service, images) -> dict:
+    """``images`` POSTed one at a time over HTTP; the counts and each
+    request's wall time at the client."""
+    from can_tpu_torch.serve import serve_http
+
+    httpd = serve_http(service, host="127.0.0.1", port=0)
+    port = httpd.server_address[1]
+    th = threading.Thread(target=httpd.serve_forever, daemon=True)
+    th.start()
+    counts, lat = [], []
+    try:
+        for img in images:
+            t0 = time.perf_counter()
+            res = _post(port, img, "raw=0")
+            lat.append(time.perf_counter() - t0)
+            if not np.isfinite(res["count"]):
+                fail(f"[obs] non-finite count for {img.shape}")
+            counts.append(res["count"])
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        th.join(timeout=10)
+    lat.sort()
+    return {"counts": counts, "p50_ms": statistics.median(lat) * 1e3,
+            "p99_ms": float(np.percentile(lat, 99)) * 1e3, "min_s": lat[0]}
+
+
+def obs_stack(argv):
+    """The serve CLI's telemetry stack from ``argv`` (no signal hook: the
+    smoke is not the CLI's main)."""
+    from can_tpu_torch.cli import serve as cli
+    from can_tpu_torch.cli.train import build_telemetry, validate_incident_args
+
+    args = cli.parse_args(argv)
+    validate_incident_args(args)
+    tel, hb, exporter = build_telemetry(args, host_id=0, install_signals=False)
+    return args, tel, hb, exporter
+
+
+def obs_check_jsonl(path: Path, n: int, batches: int) -> list:
+    """The window's JSONL gates; returns its events."""
+    events = [json.loads(x) for x in path.read_text().splitlines()]
+    kinds = [e["kind"] for e in events]
+    reqs = [e["payload"] for e in events if e["kind"] == "serve.request"]
+    if kinds.count("run") != 1 or len(reqs) != n \
+            or not all(r["ok"] for r in reqs) \
+            or kinds.count("serve.batch") != batches \
+            or "heartbeat" not in kinds:
+        fail(f"[obs] JSONL: run {kinds.count('run')}, serve.request "
+             f"{len(reqs)} (ok {sum(r['ok'] for r in reqs)}) for {n} requests, "
+             f"serve.batch {kinds.count('serve.batch')} for {batches} batches, "
+             f"heartbeats {kinds.count('heartbeat')}")
+    spans = [e["payload"] for e in events if e["kind"] == "trace.span"]
+    roots = [s for s in spans if s["name"] == "request"]
+    if len(roots) != n or {s["trace_id"] for s in roots} != \
+            {r["trace_id"] for r in reqs}:
+        fail(f"[obs] {len(roots)} request root spans for {n} requests")
+    for root in roots:
+        kids = [s for s in spans if s["parent_id"] == root["span_id"]]
+        end = root["start_s"] + root["duration_s"] + OBS_SPAN_SLACK_S
+        if sorted(k["name"] for k in kids) != ["batch_assembly", "device",
+                                                "queue_wait", "respond"] \
+                or any(k["start_s"] < root["start_s"] - OBS_SPAN_SLACK_S
+                       or k["start_s"] + k["duration_s"] > end for k in kids):
+            fail(f"[obs] request span tree {root['trace_id']}: children "
+                 f"{[(k['name'], k['start_s'], k['duration_s']) for k in kids]}"
+                 f" of the root at {root['start_s']} + {root['duration_s']}")
+    return events
+
+
+def obs_window_a(pth: Path, work: Path, images, count) -> dict:
+    """Telemetry on (the five flags) against off, 48 requests each."""
+    import re
+
+    from can_tpu_torch import obs
+    from can_tpu_torch.cli import serve as cli
+    from can_tpu_torch.ops import cuda_context as cc
+
+    h, w = SLICE8_BUCKET
+    spec = ROOT / "slo_spec.json"
+    base = ["--torch-pth", str(pth), "--max-batch", str(MAX_BATCH),
+            "--bucket-shapes", f"{h}x{w}", "--port", "0",
+            "--deadline-ms", "120000"]
+    argv = base + ["--telemetry-dir", str(work / "tel"), "--metrics-port", "0",
+                   "--slo-spec", str(spec), "--incident-dir", str(work / "inc"),
+                   "--telemetry-heartbeat-s", "1"]
+    cc.reset_launches()  # window (a) starts here
+    c0 = count.n
+    args, tel, hb, exporter = obs_stack(argv)
+    try:
+        on = cli.build_service(args, telemetry=tel)
+        exporter.add_stats_source("serve", on.stats)
+        warm_on = on.engine.compile_count
+        with on:
+            got_on = obs_http(on, images)
+            with urllib.request.urlopen(
+                    f"http://127.0.0.1:{exporter.port}/metrics", timeout=30) as r:
+                metrics = r.read().decode()
+        st_on = on.stats()
+    finally:
+        obs.shutdown_telemetry(tel, heartbeat=hb, exporter=exporter)
+    off = cli.build_service(cli.parse_args(base))
+    warm_off = off.engine.compile_count
+    with off:
+        got_off = obs_http(off, images)
+    st_off = off.stats()
+    launches, calls = cc.LAUNCHES, count.n - c0
+    if got_on["counts"] != got_off["counts"]:
+        worst = max(abs(a - b) / max(abs(b), 1e-30)
+                    for a, b in zip(got_on["counts"], got_off["counts"]))
+        fail(f"[obs] counts with telemetry on differ from off (worst rel "
+             f"{worst:.3e}): they must be bitwise equal")
+    if launches != calls or st_on["compile_count"] != warm_on \
+            or st_off["compile_count"] != warm_off:
+        fail(f"[obs] {launches} context launches for {calls} predicts; new "
+             f"signatures after warmup: on {st_on['compile_count'] - warm_on}, "
+             f"off {st_off['compile_count'] - warm_off}")
+    path = work / "tel" / "telemetry.host0.jsonl"
+    events = obs_check_jsonl(path, len(images), st_on["batches"])
+    bad = [x for x in metrics.splitlines()
+           if x and not x.startswith("#") and not re.match(OBS_PROM_LINE, x)]
+    done = [x for x in metrics.splitlines()
+            if x.startswith("can_tpu_serve_completed_total ")]
+    if bad or done != [f"can_tpu_serve_completed_total {len(images)}"]:
+        fail(f"[obs] /metrics: unparsable lines {bad[:3]}, completed {done}")
+    grade = obs.grade_events(events, obs.load_slo_spec(str(spec)))
+    p99 = grade["objectives"]["serve_p99_deadline"]
+    burning = [e for e in events if e["kind"] == "slo.burn"
+               and e["payload"]["alerting"]]
+    if [v for v in grade["violations"] if v["objective"] == "serve_p99_deadline"] \
+            or burning or p99["samples"] != len(images) or not p99["graded"]:
+        fail(f"[obs] serve_p99_deadline graded {p99}, live burns {burning[:2]}")
+    summary = obs.summarize(events)
+    if summary["serve_requests"] != len(images):
+        fail(f"[obs] report.summarize counts {summary['serve_requests']} "
+             f"requests of {len(images)}")
+    if os.listdir(work / "inc"):
+        fail(f"[obs] a clean window wrote incident bundles "
+             f"{os.listdir(work / 'inc')}")
+    kinds = {}
+    for e in events:
+        kinds[e["kind"]] = kinds.get(e["kind"], 0) + 1
+    log(f"[obs] telemetry on (--telemetry-dir --metrics-port 0 --slo-spec "
+        f"--incident-dir --telemetry-heartbeat-s 1) against off, "
+        f"{len(images)} requests one at a time over HTTP at {h}x{w} f32: "
+        f"counts bitwise equal, context_fused launches {launches} = the "
+        f"engines' predicts (warmups {warm_on} + {warm_off}, batches "
+        f"{st_on['batches']} + {st_off['batches']}), no new signature; "
+        f"JSONL events {kinds}; {len(images)} request span trees of 4 "
+        f"children inside their roots; /metrics parses, "
+        f"can_tpu_serve_completed_total {len(images)}; serve_p99_deadline "
+        f"not burning (samples {p99['samples']}, bad {p99['bad']}); "
+        f"summarize: {summary['serve_requests']} requests")
+    log(f"[obs] request latency at the client (reported, not gated: host-"
+        f"bound): p50 {got_on['p50_ms']:.2f} / p99 {got_on['p99_ms']:.2f} ms "
+        f"with telemetry on, {got_off['p50_ms']:.2f} / {got_off['p99_ms']:.2f}"
+        f" ms off; JSONL {path.stat().st_size / len(images):.0f} bytes per "
+        f"request ({path.stat().st_size} bytes, {len(events)} events)")
+    # the fastest request as the service saw it (submit to respond)
+    min_s = min(e["payload"]["latency_s"] for e in events
+                if e["kind"] == "serve.request")
+    return {"launches": launches, "min_s": min_s}
+
+
+def obs_window_b(pth: Path, sd, work: Path, images, count,
+                 min_latency_s: float) -> int:
+    """The incident path on the two-replica fleet under replica_crash,
+    then an SLO burn that the autoscaler answers."""
+    from can_tpu_torch import obs
+    from can_tpu_torch.obs.incidents import read_manifest
+    from can_tpu_torch.ops import cuda_context as cc
+    from can_tpu_torch.serve import Autoscaler, AutoscalePolicy
+    from can_tpu_torch.testing import faults
+
+    cc.reset_launches()  # window (b) starts here
+    c0 = count.n
+    inc = work / "fleet_inc"
+    args, tel, hb, exporter = obs_stack(
+        ["--torch-pth", str(pth), "--replicas", "2", "--incident-dir",
+         str(inc), "--telemetry-heartbeat-s", "1"])
+    os.environ[faults.FAULTS_ENV] = json.dumps({"faults": [
+        {"kind": "replica_crash", "replica": 0, "batch": 2}]})
+    faults._CACHED = faults._CACHED_SPEC = None
+    try:
+        fleet, svc = fleet_service(sd, "f32", tel)
+        inj = faults.active_injector()
+        with svc:
+            serial = 0
+            while not inj.fired and serial < 20:
+                svc.predict(images[serial % len(images)], timeout=300)
+                serial += 1
+            fleet_burst(svc, images, 16)
+        st = svc.stats()
+        release_fleet(fleet)
+    finally:
+        del os.environ[faults.FAULTS_ENV]
+        faults._CACHED = faults._CACHED_SPEC = None
+        obs.shutdown_telemetry(tel, heartbeat=hb, exporter=exporter)
+    if not inj.fired or st["rejected"] or st["completed"] != serial + 16:
+        fail(f"[obs] crash: fired {bool(inj.fired)}, {st['completed']} of "
+             f"{serial + 16} completed, {st['rejected']} rejected")
+    bundles = sorted(os.listdir(inc))
+    if len(bundles) != 1 or not bundles[0].endswith("-fleet-quarantine"):
+        fail(f"[obs] crash: bundles {bundles}, want one fleet_quarantine")
+    bdir = inc / bundles[0]
+    man = read_manifest(str(bdir))
+    mtimes = {f.name: f.stat().st_mtime_ns for f in bdir.iterdir()}
+    mem = json.loads((bdir / "memory.json").read_text())
+    ring = [json.loads(x) for x in (bdir / "ring.jsonl").read_text().splitlines()]
+    rows = [d for d in mem["devices"] if d["platform"] == "cuda" and d["id"] == 0]
+    quar = [e for e in ring if e["kind"] == "fleet.replica"
+            and e["payload"]["state"] == "quarantined"
+            and e["payload"]["replica"] == 0]
+    rep0 = man["info"]["serve_stats"]["replicas"]["0"] if man else {}
+    if man is None or man["reason"] != "fleet_quarantine" \
+            or mtimes["incident.json"] < max(mtimes.values()) \
+            or not rows or rows[0]["bytes_in_use"] <= 0 \
+            or rep0.get("quarantined") != 1 or not quar:
+        fail(f"[obs] crash bundle: manifest {man and man['reason']}, "
+             f"manifest last {mtimes.get('incident.json') == max(mtimes.values())}"
+             f", memory rows {mem['devices']}, serve_stats replica 0 {rep0}, "
+             f"quarantine events in the ring {len(quar)}")
+    log(f"[obs] crash: replica_crash at replica 0's batch 2 on the 2-replica "
+        f"fleet (cuda:0 x 2): {st['completed']} completed, 0 lost; one bundle "
+        f"{bundles[0]} (files {man['files']}, manifest written last), memory "
+        f"row cuda:0 bytes_in_use {rows[0]['bytes_in_use']} of "
+        f"{rows[0]['bytes_limit']}, serve_stats replica 0 quarantined, the "
+        f"ring's {len(ring)} events hold the quarantine")
+
+    # an SLO whose p99 bound lies under every latency the card served
+    threshold = min_latency_s / 2
+    spec = work / "slo_tight.json"
+    spec.write_text(json.dumps({"version": 1, "eval_interval_s": 0.05,
+                                "objectives": [{
+                                    "name": "serve_p99_tight",
+                                    "event": "serve.request",
+                                    "field": "latency_s", "op": "<=",
+                                    "threshold": threshold, "target": 0.99,
+                                    "windows_s": [60, 300], "burn_alert": 2.0,
+                                    "min_samples": 4}]}))
+    args, tel, hb, exporter = obs_stack(
+        ["--torch-pth", str(pth), "--replicas", "2", "--slo-spec",
+         str(spec), "--telemetry-dir", str(work / "tel_burn"),
+         "--telemetry-heartbeat-s", "1"])
+    try:
+        fleet, svc = fleet_service(sd, "f32", tel)
+        auto = Autoscaler(svc, AutoscalePolicy(min_replicas=2,
+                                               max_replicas=FLEET_SLOTS,
+                                               cooldown_s=0.0),
+                          gauges=tel._gauge_sink)
+        with svc:
+            sent = 0
+            while sent < 32 and not any(
+                    g["name"].endswith("_slo_alerting") and g["value"]
+                    for g in tel._gauge_sink.snapshot()["labelled_gauges"]):
+                svc.predict(images[sent % len(images)], timeout=300)
+                sent += 1
+            actions = [auto.tick(now=float(i)) for i in range(2)]
+            live = fleet.live_replicas()
+        release_fleet(fleet)
+    finally:
+        obs.shutdown_telemetry(tel, heartbeat=hb, exporter=exporter)
+    burn = [g for g in tel._gauge_sink.snapshot()["labelled_gauges"]
+            if g["name"].endswith("_slo_alerting")]
+    events = [json.loads(x) for x in (work / "tel_burn" / "telemetry.host0.jsonl")
+              .read_text().splitlines()]
+    burns = [e["payload"] for e in events if e["kind"] == "slo.burn"
+             and e["payload"]["alerting"]]
+    scale = [e["payload"] for e in events if e["kind"] == "fleet.scale"]
+    if actions != [None, "up"] or live != 3 or not burn or not burn[0]["value"] \
+            or not burns or [p["reason"] for p in scale] != ["autoscale:slo_burn"]:
+        fail(f"[obs] slo burn: alerting gauges {burn}, slo.burn alerts "
+             f"{len(burns)}, autoscaler actions {actions}, scale events "
+             f"{scale}, live {live}")
+    launches, calls = cc.LAUNCHES, count.n - c0
+    if launches != calls:
+        fail(f"[obs] fleet windows: {launches} context launches for {calls} "
+             f"predicts")
+    labels = ",".join(f"{k}={v}" for k, v in burn[0]["labels"].items())
+    log(f"[obs] slo burn: p99 bound {threshold * 1e3:.3f} ms (half the "
+        f"fastest request of window (a)) burned after {sent} requests "
+        f"(slo.burn burn_max {burns[0]['burn_max']}): {burn[0]['name']}"
+        f"{{{labels}}} = {burn[0]['value']} on the GaugeSink; the autoscaler "
+        f"handed it scaled up with reason {scale[0]['reason']}, live 2 -> "
+        f"{live}; context_fused launches in the fleet windows {launches} = "
+        f"predicts")
+    return launches
+
+
+def phase_obs(pth: Path, work: Path) -> dict:
+    """Telemetry on the serving path (slice 11); returns the context
+    launches its services made."""
+    import shutil
+
+    from can_tpu_torch.serve import prepare_image
+    from can_tpu_torch.utils.torch_import import load_torch_checkpoint
+
+    t_phase = time.perf_counter()
+    work = work / "obs"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    h, w = SLICE8_BUCKET
+    rng = np.random.default_rng(SEED + 11)
+    raw = [rng.integers(0, 256, (h - 8 * (i % 3), w - 8 * (i % 5), 3),
+                        dtype=np.uint8) for i in range(OBS_REQUESTS)]
+    count = PredictCount()
+    try:
+        a = obs_window_a(pth, work, raw, count)
+        images = [prepare_image(x) for x in raw[:8]]
+        sd = load_torch_checkpoint(str(pth))
+        b = obs_window_b(pth, sd, work, images, count, a["min_s"])
+    finally:
+        count.close()
+    log(f"[obs] phase {time.perf_counter() - t_phase:.1f} s; context_fused "
+        f"launches {a['launches']} + {b}")
+    return {"bn": 0, "bn_backward": 0, "context": a["launches"] + b}
 
 
 def _bn_mask(b: int, h: int, w: int, device) -> "torch.Tensor":
@@ -4331,10 +4688,11 @@ def main(argv) -> int:
     measure_only = argv == ["--measure-only"]
     sp_only = argv == ["--sp-only"]
     sp_nccl = argv == ["--sp-nccl"]
+    obs_only = argv == ["--obs-only"]
     worker = len(argv) == 2 and argv[0] == "--ddp-worker"
-    if argv and not (measure_only or sp_only or sp_nccl or worker):
+    if argv and not (measure_only or sp_only or sp_nccl or obs_only or worker):
         fail(f"unknown arguments {argv} (none, --measure-only, --sp-only, "
-             f"--sp-nccl, or --ddp-worker SPEC)")
+             f"--sp-nccl, --obs-only, or --ddp-worker SPEC)")
 
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke run needs a GPU")
@@ -4375,6 +4733,16 @@ def main(argv) -> int:
         log(f"[smoke] {argv[0]} done in {time.perf_counter() - t_start:.1f}s")
         log(card)
         return 0
+    pth = work / "cannet_seed0_he.pth"
+    # He-scaled normals: the reference N(0, 0.01) init collapses every gate
+    # to 0.5 and every count to ~1e-8, where parity would prove nothing
+    torch.save({k: torch.from_numpy(v) for k, v in
+                random_state_dict(SEED, he=True).items()}, pth)
+    if obs_only:
+        phase_obs(pth, work)
+        log(f"[smoke] --obs-only done in {time.perf_counter() - t_start:.1f}s")
+        log(card)
+        return 0
     if measure_only:
         rows = {(shape, count, name): bn_time(y, m, g1, g2, peaks, f"{shape} {name}")
                 for shape, count, name, y, m, g1, g2 in bn_cases() if count}
@@ -4387,11 +4755,6 @@ def main(argv) -> int:
         return 0
     row = phase_kernels(peaks)
     bn = phase_bn(peaks)
-    pth = work / "cannet_seed0_he.pth"
-    # He-scaled normals: the reference N(0, 0.01) init collapses every gate
-    # to 0.5 and every count to ~1e-8, where parity would prove nothing
-    torch.save({k: torch.from_numpy(v) for k, v in
-                random_state_dict(SEED, he=True).items()}, pth)
     check_residency(pth)
     cc.reset_launches()  # the serving path starts here
     runs = {dt: serve_one(pth, dt) for dt in SERVE_DTYPES}
@@ -4417,7 +4780,7 @@ def main(argv) -> int:
     del runs, swap
 
     # each phase resets and reads the counts around each path it drives
-    paths = {"fleet": phase_fleet(pth, card),
+    paths = {"fleet": phase_fleet(pth, card), "obs": phase_obs(pth, work),
              "determinism": phase_determinism(work),
              "train": phase_train(work), "remat": phase_remat(work),
              "s2d": phase_s2d(work), "vgg16": phase_vgg16(work),

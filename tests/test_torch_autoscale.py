@@ -6,9 +6,10 @@ JAX package's on shared scripts; then tests/test_autoscale.py's
 TestBufferRelease, TestWatchdogMath, TestWatchdog, TestResurrection (no
 AOT case), TestProbeBackoff, TestProbeIsolation, TestDrainingWatchdog,
 TestAutoscalerUnit, TestAutoscalerLive, TestChaos and TestCLI, by name
-(the AOT, obs, Prometheus and report tests wait for ROADMAP Queue 1 items
-3c and 5; the paging test here holds the trigger, the incident manager's
-once-per-cooldown is item 5's).  Every cooldown is 2 s or less; the
+(the AOT tests wait for ROADMAP Queue 1 item 3c; the obs, Prometheus and
+report ones are tests/test_torch_serve_telemetry.py's and
+test_torch_incidents.py's; the paging test here holds the trigger, the
+incident manager's once-per-cooldown is test_torch_incidents.py's).  Every cooldown is 2 s or less; the
 chaos hang is twice a watchdog deadline priced from warm launches timed
 on the host (2 s on a quiet one).
 """
@@ -427,7 +428,7 @@ class TestProbeBackoff:
     def test_persistent_failure_pages_past_threshold(self, params):
         """Past ``page_after_probes`` every failed probe triggers the
         incident layer once, with the reason and the replica; the
-        manager's once-per-cooldown is ROADMAP Queue 1 item 5's."""
+        manager's once-per-cooldown is tests/test_torch_incidents.py's."""
         pages = []
         tel = Events()
         tel.incidents = type("I", (), {

@@ -53,7 +53,11 @@ def test_port_modules_are_found():
               "can_tpu_torch.parallel.mesh", "can_tpu_torch.parallel.data_parallel",
               "can_tpu_torch.tools.convert_vgg16",
               # spatial parallelism
-              "can_tpu_torch.parallel.spatial"):
+              "can_tpu_torch.parallel.spatial",
+              # the obs core
+              "can_tpu_torch.obs.bus", "can_tpu_torch.obs.collector",
+              "can_tpu_torch.obs.incidents", "can_tpu_torch.obs.exporter",
+              "can_tpu_torch.cli.collect"):
         assert m in mods
     assert (PKG / "csrc" / "context_fused.cu").is_file()
 

@@ -753,10 +753,9 @@ def test_cli_defaults_equal_jax():
 
     mine = vars(cli.parse_args([]))
     theirs = vars(jcli.parse_args([]))
-    telemetry_only = {"compile_cache", "telemetry_dir", "telemetry_heartbeat_s",
-                      "metrics_port", "metrics_host", "collector_push",
-                      "incident_dir", "slo_spec"}
-    assert set(theirs) - set(mine) == telemetry_only
+    # the telemetry flags are shared since the obs slice; the compile
+    # cache waits for ROADMAP Queue 1 item 3c
+    assert set(theirs) - set(mine) == {"compile_cache"}
     for k in set(mine) & set(theirs):
         assert mine[k] == theirs[k], k
     assert mine["flush_policy"] == "priced" and mine["menu_budget"] is None

@@ -30,6 +30,12 @@ numpy batches.  Tolerances:
 * the sp eval against ``make_sp_eval_step``: rtol 2e-4 (abs) / 4e-4
   (squared), tests/test_spatial.py:182-185; the BN eval forward as the
   forward;
+* the bf16 pooled sums at sp=2: each shard's partial is rounded to bf16
+  before the f32 group sum, which is rounded once more — on partials
+  where that double rounding differs from rounding the whole sum once,
+  the port equals the hand-computed rounding exactly; on a seeded shard
+  pair the port's pool is within one bf16 ulp of JAX's
+  ``adaptive_pool_sp`` under ``shard_map``;
 * the CLIs at ``--sp 2`` over 2 gloo processes against one process
   without sp, on the same buckets: MAE and MSE at rtol 2e-4 (the eval
   sums' tolerance above) and the ``--show-index`` map at the forward's;
@@ -596,13 +602,101 @@ def _cli_worker(rank, nproc, data, ck, viz) -> dict:
     return out
 
 
+POOL_SIZES = ((1, 1), (2, 2), (3, 3), (6, 6))
+
+
+def _pool_worker(rank, nproc, inputs, out) -> dict:
+    """The sp=2 bf16 pools of this rank's rows of each input at every
+    POOL_SIZES."""
+    from can_tpu_torch.parallel import make_mesh, make_spatial_ops
+
+    mesh = make_mesh(dp=1, sp=2)
+    data = np.load(inputs)
+    pooled = {}
+    for name in data.files:
+        x = torch.from_numpy(data[name]).to(torch.bfloat16)
+        hl = x.shape[1] // mesh.sp
+        ops = make_spatial_ops(mesh, tuple(x.shape[1:3]), device="cpu")
+        local = x[:, mesh.s * hl:(mesh.s + 1) * hl]
+        pooled.update({f"{name}/{i}": ops.adaptive_pool(local, size).float().numpy()
+                       for i, size in enumerate(POOL_SIZES)})
+    return {"arrays": _save(f"{out}-rank{rank}.npz", **pooled)}
+
+
+def _bf16(a):
+    return torch.from_numpy(np.asarray(a, np.float32)).to(torch.bfloat16).float().numpy()
+
+
+@pytest.fixture(scope="module")
+def pool_runs(tmp_path_factory):
+    """Two bf16 feature maps split over sp=2: ``exact`` (8 rows of 4
+    columns of integers: at pool sizes 1 and 2 every weight is a power of
+    two, so each shard's partial is exact in f32 and f64 alike) and
+    ``seeded`` (12 x 10 of scaled normals)."""
+    tmp = tmp_path_factory.mktemp("pool")
+    rng = np.random.default_rng(7)
+    inputs = {"exact": rng.integers(-100, 101, size=(2, 8, 4, 64)).astype(np.float32),
+              "seeded": _bf16(rng.normal(size=(2, 12, 10, 64)) * 3.0)}
+    ranks = spawn(tmp, "pool", 2, _save(tmp / "pool.npz", **inputs), tmp / "pool")
+    return inputs, [np.load(r["arrays"]) for r in ranks]
+
+
+def test_sp_bf16_pool_rounds_each_partial_as_jax(pool_runs):
+    """The reference rounds each shard's partial to the compute dtype
+    before its psum: hand-computed, round(round(a) + round(b)), exactly.
+    The integer inputs make that differ from round(a + b) in some
+    entries, so the test bites."""
+    from can_tpu_torch.ops.pooling import adaptive_pool_matrix
+
+    inputs, ranks = pool_runs
+    x = inputs["exact"].astype(np.float64)
+    hg, w = x.shape[1:3]
+    hl = hg // 2
+    differs = 0
+    for i in (0, 1):  # sizes 1 and 2: power-of-two weights
+        sh, sw = POOL_SIZES[i]
+        ph = adaptive_pool_matrix(hg, sh, "cpu").double().numpy()
+        pw = adaptive_pool_matrix(w, sw, "cpu").double().numpy()
+        parts = [np.einsum("nhwc,ph,qw->npqc", x[:, s * hl:(s + 1) * hl],
+                           ph[:, s * hl:(s + 1) * hl], pw) for s in (0, 1)]
+        want = _bf16(_bf16(parts[0]) + _bf16(parts[1]))
+        differs += int(np.sum(want != _bf16(parts[0] + parts[1])))
+        for r in ranks:
+            np.testing.assert_array_equal(r[f"exact/{i}"], want)
+    assert differs > 0
+
+
+def test_sp_bf16_pool_within_one_ulp_of_jax(pool_runs):
+    """The sp=2 bf16 pool against JAX's ``adaptive_pool_sp`` under
+    ``shard_map`` on two of the virtual CPU devices: within one bf16 ulp
+    of JAX's value (the f32 contractions may sum in another order)."""
+    import jax.numpy as jnp
+    from jax.sharding import PartitionSpec as P
+
+    from can_tpu.parallel.spatial import make_spatial_ops as jax_spatial_ops
+    from can_tpu.parallel.spatial import shard_map
+
+    inputs, ranks = pool_runs
+    for name, x in inputs.items():
+        ops = jax_spatial_ops("spatial", 2, x.shape[1:3])
+        f = shard_map(lambda xl: tuple(ops.adaptive_pool(xl, s) for s in POOL_SIZES),
+                      mesh=_jax_mesh(1, 2), in_specs=P(None, "spatial", None, None),
+                      out_specs=tuple(P() for _ in POOL_SIZES), check_vma=False)
+        want = [np.asarray(o.astype(jnp.float32))
+                for o in f(jnp.asarray(x, dtype=jnp.bfloat16))]
+        for i, ref in enumerate(want):
+            ulp = np.spacing(np.abs(ref).astype(np.float32)) * 2.0 ** 16  # bf16's
+            for r in ranks:
+                assert np.all(np.abs(r[f"{name}/{i}"] - ref) <= ulp), (name, i)
+
+
 # -- worker entry ------------------------------------------------------------
 def _worker_main(argv) -> None:
     mode, rdv, nproc, rank = argv[0], argv[1], int(argv[2]), int(argv[3])
     rt.init_runtime(platform="cpu", coordinator_address=rdv, num_processes=nproc,
                     process_id=rank)
     try:
-        fn = {"sp": _sp_worker, "cli": _cli_worker}[mode]
+        fn = {"sp": _sp_worker, "cli": _cli_worker, "pool": _pool_worker}[mode]
         result = fn(rank, nproc, *argv[4:])
     finally:
         rt.shutdown_runtime()
