@@ -1,7 +1,8 @@
 """Shared CLI plumbing: dataset roots, the prepared-store flag, the world
 and each replica's batch, the spatial shards' padding and step caches, the
-planner's memory cap and launch price (counterpart of
-``can_tpu/cli/common.py:15-140, 359-564, 613-645``).
+planner's memory cap and launch price, and the device peak table of the
+cost ledger (counterpart of ``can_tpu/cli/common.py:15-140, 220-295,
+359-564, 613-645``).
 
 The planner prices launches in pixels.  Its two device numbers are the
 card's own, measured by ``chip_smoke.py``'s ``[planner]`` phase on an
@@ -19,6 +20,7 @@ the lockstep schedule needs the same plan on every rank.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 import statistics
 import time
@@ -56,6 +58,69 @@ MODEL_MPX_PER_S = 32.21
 # One launch's cost in Mpx: ``measure_launch_cost_mpx`` on that card
 # (0.0268 ms, the median synchronised tiny op) times MODEL_MPX_PER_S.
 DEFAULT_LAUNCH_COST_MPX = 0.00086
+
+# Peak rates by CUDA device name (counterpart of
+# can_tpu/cli/common.py:220-295): (FLOP/s f32, FLOP/s bf16, memory
+# bytes/s), NVIDIA's H100 data sheet, dense.  Unlike the TPU rows, f32 is
+# the card's FP32 rate outside the tensor cores, not bf16/2: the port
+# computes f32 with TF32 off (device.use_full_f32), so f32 convolutions
+# and matmuls never reach the tensor cores.  Matched in order, each row
+# by a name containing all of its parts (spaces ignored, any case).
+_PEAK_BY_DEVICE_NAME = (
+    (("h100", "hbm3"), (67e12, 989e12, 3.35e12)),   # SXM: "NVIDIA H100 80GB HBM3"
+    (("h100", "sxm"), (67e12, 989e12, 3.35e12)),
+    (("h100", "pcie"), (51e12, 756e12, 2.0e12)),
+)
+
+# CPU pseudo-peaks: NOMINAL placeholders (the JAX package's values),
+# flagged nominal=True so every consumer can say "relative only".  They
+# exist so the MFU/roofline plumbing runs (and is tested) on the CPU;
+# nothing schedules by them.
+_CPU_NOMINAL_PEAKS = (5e10, 1e10)
+
+
+@dataclasses.dataclass(frozen=True)
+class DevicePeaks:
+    """Peak rates for one device kind (the roofline's two ceilings)."""
+
+    flops_bf16: float    # FLOP/s at the bf16 tensor-core rate
+    flops_f32: float     # FLOP/s in f32 outside the tensor cores
+    hbm_bytes_s: float   # device memory bandwidth, bytes/s
+    source: str          # "spec:<row>" or "nominal:cpu"
+    nominal: bool = False
+
+    def flops(self, compute: str = "f32") -> float:
+        return self.flops_bf16 if compute == "bf16" else self.flops_f32
+
+    def ridge(self, compute: str = "f32") -> float:
+        """Arithmetic intensity (FLOP/byte) where the roofline bends."""
+        return self.flops(compute) / self.hbm_bytes_s
+
+
+def device_peaks_for_kind(kind: str) -> Optional[DevicePeaks]:
+    """Spec peaks for a CUDA device name (``torch.cuda.get_device_name``),
+    or None when the card is not in the table."""
+    k = kind.lower().replace(" ", "")
+    for parts, (f32, bf16, bw) in _PEAK_BY_DEVICE_NAME:
+        if all(p in k for p in parts):
+            return DevicePeaks(flops_bf16=bf16, flops_f32=f32,
+                               hbm_bytes_s=bw, source=f"spec:{'-'.join(parts)}")
+    return None
+
+
+def local_device_peaks(device) -> Optional[DevicePeaks]:
+    """Peaks for ``device``: the spec table for a CUDA device, the
+    labelled-nominal entry for the CPU (so the MFU gauges stay
+    exercisable in tests), None anywhere else.  A CPU device never
+    touches CUDA."""
+    device = torch.device(device)
+    if device.type == "cpu":
+        f, bw = _CPU_NOMINAL_PEAKS
+        return DevicePeaks(flops_bf16=f, flops_f32=f, hbm_bytes_s=bw,
+                           source="nominal:cpu", nominal=True)
+    if device.type == "cuda":
+        return device_peaks_for_kind(torch.cuda.get_device_name(device))
+    return None
 
 
 def parse_pad_multiple(value):
@@ -293,16 +358,17 @@ def make_cached_sp_eval_step(mesh, *, compute_dtype=None) -> Callable:
 
 
 def make_cached_sp_train_step(model, mesh, *, policy: Callable,
-                              compute_dtype=None, bn_ops=None) -> Callable:
+                              compute_dtype=None, bn_ops=None,
+                              health_metrics: bool = False) -> Callable:
     """The train CLI's spatial step: one ``make_sp_train_step`` per
     (bucket shape, remat), remat decided per launch by ``policy(hw,
     batch=global launch)`` (``make_remat_policy`` with ``shards = dp *
-    sp``)."""
+    sp``); ``health_metrics`` as ``make_sp_train_step`` takes it."""
     from can_tpu_torch.parallel.spatial import make_sp_train_step
 
     cache = SpatialStepCache(lambda key: make_sp_train_step(
         model, mesh, key[0], compute_dtype=compute_dtype, bn_ops=bn_ops,
-        remat=key[1]))
+        remat=key[1], health_metrics=health_metrics))
 
     def train_step(state, batch):
         hw = block_image_hw(batch, mesh.sp)

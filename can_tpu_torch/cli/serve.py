@@ -42,7 +42,11 @@ service's ``/stats`` counters, ``--incident-dir`` dumps a bundle on a
 replica quarantine, a fast SLO burn or SIGTERM, ``--slo-spec`` grades
 the traffic live (the autoscaler reads its burn gauges), and
 ``--collector-push`` streams the bus to ``python -m
-can_tpu_torch.cli.collect``.
+can_tpu_torch.cli.collect``.  Any of them arms the cost ledger: the
+JSONL gains ``perf.summary`` lines (``serve_predict`` rows: each warmed
+program's flops, bytes and roofline class, MFU once traffic times it),
+``/metrics`` the ``can_tpu_mfu_*`` / ``can_tpu_roofline_*`` gauges, and
+the fleet's watchdog its priced deadline.
 """
 
 from __future__ import annotations
@@ -442,7 +446,8 @@ def main(argv=None) -> int:
         resolve_device(args.platform)
     except NoCudaDeviceError as e:
         raise SystemExit(f"[serve] {e}")
-    telemetry, heartbeat, exporter = build_telemetry(args, host_id=0)
+    telemetry, heartbeat, exporter = build_telemetry(args, host_id=0,
+                                                     trace_window=None)
     try:
         service = build_service(args, telemetry=telemetry)
         if exporter is not None:

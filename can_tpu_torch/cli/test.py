@@ -22,8 +22,11 @@ bucket H is padded to multiples of 8*K (exact shapes cannot shard), the
 per-image counts are summed over a replica's shards before ``|et -
 gt|``, and ``--show-index`` runs the H-sharded forward on the first
 replica's K ranks, the image's H padded to ``max(ceil(h / 8K) * 8K,
-16K)`` and the map cropped back.  The telemetry, trace, incident and
-SLO flags come with later slices (ROADMAP Queue 1).
+16K)`` and the map cropped back.  The train CLI's nine telemetry flags
+apply here too (``cli/train.py``): ``--telemetry-dir`` writes the eval
+loop's ``compile`` / ``step_window`` / ``stall`` / ``memory`` /
+``perf.summary`` events and one ``epoch`` event with the MAE and MSE,
+``--trace-steps A:B --profile-dir D`` traces eval batches A..B-1.
 """
 
 from __future__ import annotations
@@ -115,6 +118,9 @@ def parse_args(argv=None):
                    default=DEFAULT_LAUNCH_COST_MPX,
                    help="per-launch cost for the planner, in megapixel "
                         "equivalents, or 'auto' to measure this host")
+    from can_tpu_torch.cli.train import add_telemetry_args
+
+    add_telemetry_args(p)
     return p.parse_args(argv)
 
 
@@ -204,6 +210,7 @@ def evaluate_checkpoint(args, *, prefetch: Optional[int] = None) -> dict:
     Raises SystemExit on bad arguments and without the asked-for
     device.  Joins the process group a launcher describes and leaves it
     at the end, unless the caller formed it."""
+    from can_tpu_torch.cli.train import validate_incident_args, validate_trace_args
     from can_tpu_torch.parallel import init_runtime, runtime_active, shutdown_runtime
 
     roots = resolve_split_roots(args.split, args.image_root, args.gt_root,
@@ -215,6 +222,8 @@ def evaluate_checkpoint(args, *, prefetch: Optional[int] = None) -> dict:
         raise SystemExit("--batch-size must be >= 1")
     if args.item_cache_mb < 0:
         raise SystemExit("--item-cache-mb must be >= 0")
+    trace_window = validate_trace_args(args)
+    validate_incident_args(args)
     owned = not runtime_active()
     try:
         topo = init_runtime(platform=args.platform)
@@ -224,13 +233,32 @@ def evaluate_checkpoint(args, *, prefetch: Optional[int] = None) -> dict:
         if topo["process_count"] % args.sp:
             raise SystemExit(f"[eval] --sp {args.sp} does not divide the "
                              f"process count {topo['process_count']}")
-        return _evaluate(args, roots, torch.device(topo["device"]), prefetch)
+        return _evaluate(args, roots, torch.device(topo["device"]), prefetch,
+                         trace_window)
     finally:
         if owned:
             shutdown_runtime()
 
 
-def _evaluate(args, roots, device, prefetch) -> dict:
+def _evaluate(args, roots, device, prefetch, trace_window=None) -> dict:
+    from can_tpu_torch.cli.train import build_telemetry, wants_instrumentation
+    from can_tpu_torch.obs import shutdown_telemetry
+    from can_tpu_torch.parallel import process_index
+
+    telemetry, heartbeat, exporter = build_telemetry(
+        args, host_id=process_index(), trace_window=trace_window,
+        device=device)
+    try:
+        # the loops are instrumented only when something consumes them
+        loop_tel = (telemetry if wants_instrumentation(args, trace_window)
+                    else None)
+        return _evaluate_on(args, roots, device, prefetch, telemetry, loop_tel)
+    finally:
+        # the one teardown order shared with the SIGTERM path
+        shutdown_telemetry(telemetry, heartbeat=heartbeat, exporter=exporter)
+
+
+def _evaluate_on(args, roots, device, prefetch, telemetry, loop_tel) -> dict:
     from can_tpu_torch.cli.common import (
         build_mesh_and_batch,
         make_cached_sp_eval_step,
@@ -265,6 +293,7 @@ def _evaluate(args, roots, device, prefetch) -> dict:
     except StaleStoreError as e:
         raise SystemExit(f"--prepared-root {args.prepared_root}: {e}") from None
     note = ds.prepared_note
+    telemetry.emit("data.prepared", split=args.split, **note)
     if main:
         print(f"[data] prepared store: "
               f"{'on' if note['active'] else 'off (' + str(note['reason']) + ')'}")
@@ -305,10 +334,15 @@ def _evaluate(args, roots, device, prefetch) -> dict:
         metrics = evaluate(eval_step, model, batcher.epoch(0), put_fn=put_fn,
                            dataset_size=batcher.dataset_size,
                            prefetch=(put.depth_for(batcher) if prefetch is None
-                                     else prefetch))
+                                     else prefetch),
+                           telemetry=loop_tel)
         eval_s = time.perf_counter() - t0
     finally:
         batcher.close()
+    telemetry.emit("epoch", step=0, phase="eval", mae=metrics["mae"],
+                   mse=metrics["mse"], num_images=metrics["num_images"])
+    if item_cache is not None:
+        telemetry.emit("data.cache", step=0, **item_cache.stats())
     if item_cache is not None and main:
         print(f"[data] item cache: {item_cache.stats()}")
     if main:

@@ -41,10 +41,23 @@ it.  ``--sp K`` splits each image's height over K processes
 shards, the ranks of a replica load the same images and keep their rows
 of them, bucket H is padded to multiples of 8*K and at least 16*K, the
 step sums its gradients over the world (no DDP) and the lr scales with
-dp.  Elastic training and this CLI's telemetry flags come with later
-slices (ROADMAP Queue 1 items 6 and 5b); the telemetry wiring the serve
-CLI uses already lives here (``validate_incident_args``,
-``build_telemetry``).
+dp.  Elastic training comes with a later slice (ROADMAP Queue 1 item 6).
+
+Telemetry (``obs/``) is off unless asked for, with the JAX CLI's flags:
+``--telemetry-dir`` writes ``telemetry.host{rank}.jsonl`` (one per
+process: ``compile`` with each first call's flops and bytes,
+``step_window``, ``stall``, ``memory``, ``perf.summary`` — MFU against the
+card's peaks, roofline class, the launch-cost fit — ``epoch``, span
+trees, heartbeats), ``--metrics-port`` serves Prometheus ``/metrics``,
+``--incident-dir`` / ``--slo-spec`` / ``--collector-push`` as in the
+serve CLI.  Any of them turns on the per-step instrumentation (the
+steps also return their grad and update norms, for the run-health
+detectors); training with it is bitwise the training without.
+``--trace-steps A:B --profile-dir D`` writes one ``torch.profiler``
+Chrome trace of steps A..B-1 into D; ``--profile-dir`` alone traces the
+whole run.  The wiring (``validate_trace_args``,
+``validate_incident_args``, ``build_telemetry``) is shared with the eval
+and serve CLIs.
 """
 
 from __future__ import annotations
@@ -196,7 +209,86 @@ def parse_args(argv=None):
                    help="default/gpu: the CUDA device cuda:LOCAL_RANK, NCCL "
                         "between processes (exit non-zero without it); cpu: "
                         "run on the CPU, gloo between processes")
+    add_telemetry_args(p)
     return p.parse_args(argv)
+
+
+def add_telemetry_args(p) -> None:
+    """The nine telemetry flags of the train and eval CLIs, with the JAX
+    CLIs' defaults."""
+    p.add_argument("--profile-dir", type=str, default="",
+                   help="torch.profiler trace output dir (one Chrome trace): "
+                        "the --trace-steps window; the train CLI traces the "
+                        "whole run when it is given alone")
+    p.add_argument("--trace-steps", type=str, default="",
+                   help="torch.profiler trace WINDOW by run-local step "
+                        "range, START:STOP slice semantics (e.g. 10:13 = "
+                        "steps 10..12) into --profile-dir — instead of the "
+                        "whole-run trace a bare --profile-dir captures")
+    p.add_argument("--telemetry-dir", type=str, default="",
+                   help="write structured telemetry JSONL here (one "
+                        "telemetry.host{k}.jsonl per process: compile / "
+                        "step_window / stall / memory / perf.summary / "
+                        "heartbeat / epoch events; summarize with "
+                        "tools/telemetry_report.py)")
+    p.add_argument("--telemetry-heartbeat-s", type=float, default=60.0,
+                   help="heartbeat event interval (with --telemetry-dir): "
+                        "a hung run leaves a last-known-good timestamp; "
+                        "<= 0 disables the heartbeat thread")
+    p.add_argument("--metrics-port", type=int, default=None,
+                   help="serve Prometheus-text /metrics + /healthz on this "
+                        "port (0 = ephemeral): live step/loss/grad-norm and "
+                        "MFU gauges, compile/stall/alert counters; also "
+                        "enables the run-health detectors (health.alert "
+                        "events).  Default off")
+    p.add_argument("--metrics-host", type=str, default="127.0.0.1",
+                   help="bind address for --metrics-port (0.0.0.0 to let "
+                        "a fleet scraper reach every host)")
+    p.add_argument("--collector-push", type=str, default="",
+                   metavar="URL",
+                   help="stream this process's telemetry to a FleetCollector "
+                        "(python -m can_tpu_torch.cli.collect) at URL as "
+                        "batched JSONL over HTTP POST /ingest; best-effort: "
+                        "a dead collector costs dropped batches (counted), "
+                        "never the run")
+    p.add_argument("--incident-dir", type=str, default="",
+                   help="arm the incident layer (obs/incidents.py): a "
+                        "flight-recorder ring, and any trigger — NaN/stall "
+                        "health alert, unhandled loop exception, "
+                        "SIGTERM — dumps a bundle (ring + gauges + cost "
+                        "ledger + all-thread stacks + device memory + run "
+                        "config) into this directory.  Default off")
+    p.add_argument("--slo-spec", type=str, default="",
+                   help="JSON SLO spec (see slo_spec.json): objectives "
+                        "evaluated live as multi-window burn rates — "
+                        "slo.burn events, can_tpu_slo_* gauges on /metrics, "
+                        "bundles on fast burn (with --incident-dir).  Grade "
+                        "a finished run with tools/slo_report.py")
+
+
+def validate_trace_args(args):
+    """Parse ``--trace-steps`` (SystemExit on malformed specs, BEFORE any
+    device work) and require the trace destination; returns the window
+    or None."""
+    from can_tpu_torch.obs import parse_trace_steps
+
+    try:
+        window = parse_trace_steps(getattr(args, "trace_steps", ""))
+    except ValueError as e:
+        raise SystemExit(str(e))
+    if window and not args.profile_dir:
+        raise SystemExit("--trace-steps needs --profile-dir (the trace's "
+                         "output directory)")
+    return window
+
+
+def wants_instrumentation(args, trace_window) -> bool:
+    """The loops are instrumented when ANY consumer exists: a JSONL
+    artifact, a trace window, a live /metrics scraper, an incident
+    recorder or an SLO engine (the JAX CLIs' rule)."""
+    return bool(args.telemetry_dir or trace_window
+                or args.metrics_port is not None
+                or args.incident_dir or args.slo_spec)
 
 
 def run_config(args) -> dict:
@@ -286,17 +378,30 @@ def validate_incident_args(args) -> None:
                              f"{incident_dir}: {e}")
 
 
-def build_telemetry(args, *, host_id: int, logger=None,
-                    install_signals: bool = True):
+def ledger_compute(args) -> str:
+    """The compute dtype a run's MFU is priced at: ``"bf16"`` under
+    ``--bf16`` (train, eval, and the serve CLI's legacy mode) or the serve
+    CLI's ``--serve-dtype bf16``; ``"f32"`` otherwise (int8 serving
+    computes in f32 on dequantised weights).  On the H100 the two peaks
+    differ 15x (989 against 67 TFLOP/s), so a bf16 run priced at f32
+    would read an MFU 15x too high."""
+    return ("bf16" if getattr(args, "bf16", False)
+            or getattr(args, "serve_dtype", "f32") == "bf16" else "f32")
+
+
+def build_telemetry(args, *, host_id: int, trace_window, device=None,
+                    logger=None, install_signals: bool = True):
     """The CLIs' shared wiring: per-host JSONL sink (``--telemetry-dir``),
-    MetricLogger adapter, heartbeat thread, and — with ``--metrics-port``
-    — an in-memory gauge sink plus the live Prometheus exporter
-    (obs/exporter.py).  ``--incident-dir`` adds the flight recorder +
-    IncidentManager (+ the SIGTERM/preemption hook, unless
-    ``install_signals=False`` — in-process tests must not retarget the
-    interpreter's signal table); ``--slo-spec`` adds the SLO burn-rate
-    engine.  Returns ``(telemetry, heartbeat_or_None, exporter_or_None)``
-    — tear the stack down with ``obs.shutdown_telemetry``.
+    MetricLogger adapter, optional step-range trace window
+    (``trace_window``: ``validate_trace_args``' result, or None),
+    heartbeat thread, and — with ``--metrics-port`` — an in-memory gauge
+    sink plus the live Prometheus exporter (obs/exporter.py).
+    ``--incident-dir`` adds the flight recorder + IncidentManager (+ the
+    SIGTERM/preemption hook, unless ``install_signals=False`` —
+    in-process tests must not retarget the interpreter's signal table);
+    ``--slo-spec`` adds the SLO burn-rate engine.  Returns ``(telemetry,
+    heartbeat_or_None, exporter_or_None)`` — tear the stack down with
+    ``obs.shutdown_telemetry``.
 
     ``--collector-push URL`` adds a best-effort push sink streaming the
     bus to a FleetCollector; ``CAN_TPU_HOST_ID`` overrides the host id on
@@ -304,11 +409,12 @@ def build_telemetry(args, *, host_id: int, logger=None,
     0 — the fleet view needs them distinct).
 
     The bus carries ``_gauge_sink`` (the autoscaler reads
-    ``can_tpu_slo_alerting`` from it), ``incidents`` and ``spans`` (the
-    serving path's request and rollout spans).  ``ledger`` stays None:
-    the cost ledger and the step trace window (the reference's
-    ``trace_window=``) are ROADMAP Queue 1 item 5b, so the fleet keeps
-    its fixed watchdog floor, as the reference's does with no ledger."""
+    ``can_tpu_slo_alerting`` from it), ``incidents``, and — when any
+    consumer exists — ``spans`` and ``ledger``: a ``ProgramCostLedger``
+    pricing MFU at the run's compute dtype (``ledger_compute``) against
+    ``device``'s peaks (default: the device ``--platform`` resolves to; a
+    CPU run never touches CUDA).  The serving fleet prices its watchdog
+    from it."""
     from can_tpu_torch import obs
 
     env_hid = os.environ.get("CAN_TPU_HOST_ID", "")
@@ -344,16 +450,26 @@ def build_telemetry(args, *, host_id: int, logger=None,
     if incident_dir:
         recorder = obs.FlightRecorder()
         extra.append(recorder)
+    trace = (obs.StepTraceWindow(args.profile_dir, *trace_window)
+             if trace_window else None)
     if telemetry_dir:
         tel = obs.open_host_telemetry(telemetry_dir, host_id=host_id,
-                                      extra_sinks=extra)
+                                      extra_sinks=extra, trace=trace)
     else:
-        tel = obs.Telemetry(extra, host_id=host_id)
+        tel = obs.Telemetry(extra, host_id=host_id, trace=trace)
     tel._gauge_sink = gauges
-    # the span tracer is armed when any consumer exists (JSONL artifact,
-    # live scraper, incident recorder, SLO engine); a default run
-    # constructs none, so nothing new touches its hot path
-    if telemetry_dir or exporter is not None or incident_dir or slo_spec_path:
+    # the cost ledger and the span tracer are armed when any consumer
+    # exists (JSONL artifact, live scraper, trace window, incident
+    # recorder, SLO engine); a default run constructs neither, so nothing
+    # new touches its hot path.  MFU is priced at the COMPUTE dtype
+    if (telemetry_dir or exporter is not None or trace_window
+            or incident_dir or slo_spec_path):
+        if device is None:
+            from can_tpu_torch.device import resolve_device
+
+            device = resolve_device(getattr(args, "platform", "default"))
+        tel.ledger = obs.ProgramCostLedger(compute=ledger_compute(args),
+                                           device=device)
         tel.spans = obs.SpanTracer(tel)
     run_config = {k: v for k, v in vars(args).items()
                   if isinstance(v, (str, int, float, bool, type(None)))}
@@ -395,19 +511,21 @@ def train(args) -> dict:
     from can_tpu_torch.parallel import init_runtime, runtime_active, shutdown_runtime
 
     roots = validate(args)
+    trace_window = validate_trace_args(args)
+    validate_incident_args(args)
     owned = not runtime_active()
     try:
         topo = init_runtime(platform=args.platform)
     except NoCudaDeviceError as e:
         raise SystemExit(f"[train] {e}") from None
     try:
-        return _train(args, roots, topo)
+        return _train(args, roots, topo, trace_window)
     finally:
         if owned:
             shutdown_runtime()
 
 
-def _train(args, roots, topo) -> dict:
+def _train(args, roots, topo, trace_window=None) -> dict:
     from can_tpu_torch.data import CrowdDataset, ItemCache, ShardedBatcher, StaleStoreError
     from can_tpu_torch.data.prefetch import DevicePut
     from can_tpu_torch.models import CANNet, load_vgg16_frontend
@@ -425,6 +543,7 @@ def _train(args, roots, topo) -> dict:
         train_one_epoch,
     )
     from can_tpu_torch.utils.checkpoint import (
+        CheckpointIOError,
         CheckpointManager,
         ConfigDriftError,
         check_resume_config,
@@ -437,6 +556,9 @@ def _train(args, roots, topo) -> dict:
     train_img, train_gt, test_img, test_gt = roots
     device = torch.device(topo["device"])
     main = is_main_process()
+    # per-step instrumentation (known before the steps are built: they
+    # return their grad and update norms for the health detectors)
+    instrument = wants_instrumentation(args, trace_window)
     if device.type == "cuda":
         use_deterministic()
         if not args.bf16:
@@ -580,11 +702,13 @@ def _train(args, roots, topo) -> dict:
     if sp > 1:
         train_step = make_cached_sp_train_step(model, mesh, policy=remat_policy,
                                                compute_dtype=compute_dtype,
-                                               bn_ops=bn_ops)
+                                               bn_ops=bn_ops,
+                                               health_metrics=instrument)
         eval_step = make_cached_sp_eval_step(mesh, compute_dtype=compute_dtype)
     else:
         train_step = make_dp_train_step(model, mesh, policy=remat_policy,
-                                        compute_dtype=compute_dtype, bn_ops=bn_ops)
+                                        compute_dtype=compute_dtype, bn_ops=bn_ops,
+                                        health_metrics=instrument)
         eval_step = make_dp_eval_step(mesh, compute_dtype=compute_dtype)
     put = DevicePut(device)
     # under sp each rank keeps its rows of the replica's batch on the host
@@ -598,44 +722,83 @@ def _train(args, roots, topo) -> dict:
     summary = {"steps": 0, "schedule_steps": 0, "eval_batches": 0,
                "epochs": [], "checkpoint_dir": ckpt.directory,
                "world_size": dp}
+    # the bus (one JSONL per process) and, when a consumer exists, the
+    # instrumented loops; the ledger's drift gauge prices against the
+    # launch cost this run's plans used
+    from can_tpu_torch import obs
+    from can_tpu_torch.parallel import process_index
+    from can_tpu_torch.utils.profiling import profile_trace
+
+    telemetry, heartbeat, exporter = build_telemetry(
+        args, host_id=process_index(), trace_window=trace_window,
+        device=device)
+    if telemetry.ledger is not None:
+        telemetry.ledger.plan_launch_cost_px = common["launch_cost_px"]
+    for split, d in (("train", train_ds), ("test", test_ds)):
+        telemetry.emit("data.prepared", split=split, **d.prepared_note)
+    loop_tel = telemetry if instrument else None
+    health = obs.HealthMonitor(telemetry) if loop_tel is not None else None
     try:
-        for epoch in range(start_epoch, args.epochs):
-            batches = train_batcher.epoch(epoch)
-            summary["schedule_steps"] += train_batcher.batches_per_epoch(epoch)
-            if args.max_steps_per_epoch:
-                batches = itertools.islice(batches, args.max_steps_per_epoch)
-            lr = state.lr()
-            state, stats = train_one_epoch(train_step, state, batches,
-                                           put_fn=put_fn, epoch=epoch,
-                                           prefetch=prefetch)
-            row = {"epoch": epoch, "train_loss": stats.loss, "lr": lr,
-                   "img_per_s": stats.img_per_s, "epoch_s": stats.seconds,
-                   "steps": stats.steps,
-                   "distinct_shapes": stats.distinct_shapes}
-            summary["steps"] += stats.steps
-            if (epoch + 1) % args.eval_interval == 0 or epoch == args.epochs - 1:
-                metrics = evaluate(eval_step, state.model, test_batcher.epoch(0),
-                                   put_fn=put_fn, prefetch=eval_prefetch,
-                                   dataset_size=test_batcher.dataset_size)
-                summary["eval_batches"] += metrics["batches"]
-                row.update(mae=metrics["mae"], mse=metrics["mse"])
-                ckpt.save(epoch, state, mae=metrics["mae"],
-                          extra={"mse": metrics["mse"]})
-                if best is None or metrics["mae"] < best:
-                    best = metrics["mae"]
-                    if main:
-                        print(f"[best] epoch {epoch}: MAE {best:.3f}")
-                if args.show and main:
-                    _save_sample_viz(args, state.model, test_ds, epoch, logger,
-                                     compute_dtype)
-            if main:
-                logger.log(row, step=epoch)
-            summary["epochs"].append(row)
+        with profile_trace(None if trace_window else (args.profile_dir or None)):
+            for epoch in range(start_epoch, args.epochs):
+                batches = train_batcher.epoch(epoch)
+                summary["schedule_steps"] += train_batcher.batches_per_epoch(epoch)
+                if args.max_steps_per_epoch:
+                    batches = itertools.islice(batches, args.max_steps_per_epoch)
+                lr = state.lr()
+                state, stats = train_one_epoch(train_step, state, batches,
+                                               put_fn=put_fn, epoch=epoch,
+                                               prefetch=prefetch,
+                                               telemetry=loop_tel, health=health)
+                row = {"epoch": epoch, "train_loss": stats.loss, "lr": lr,
+                       "img_per_s": stats.img_per_s, "epoch_s": stats.seconds,
+                       "steps": stats.steps,
+                       "distinct_shapes": stats.distinct_shapes}
+                summary["steps"] += stats.steps
+                eval_epoch = ((epoch + 1) % args.eval_interval == 0
+                              or epoch == args.epochs - 1)
+                if eval_epoch:
+                    metrics = evaluate(eval_step, state.model,
+                                       test_batcher.epoch(0), put_fn=put_fn,
+                                       prefetch=eval_prefetch,
+                                       dataset_size=test_batcher.dataset_size,
+                                       telemetry=loop_tel)
+                    summary["eval_batches"] += metrics["batches"]
+                    row.update(mae=metrics["mae"], mse=metrics["mse"])
+                # the JAX CLI's epoch event: the row's scalars, the epoch
+                # as the event's step
+                telemetry.emit("epoch", step=epoch, **{
+                    k: v for k, v in row.items() if k not in ("epoch", "steps")})
+                telemetry.emit("data.planner", step=epoch,
+                               realized_programs=stats.programs,
+                               **train_batcher.planner_stats(epoch))
+                if item_cache is not None:
+                    telemetry.emit("data.cache", step=epoch, **item_cache.stats())
+                if eval_epoch:
+                    ckpt.save(epoch, state, mae=metrics["mae"],
+                              extra={"mse": metrics["mse"]})
+                    if best is None or metrics["mae"] < best:
+                        best = metrics["mae"]
+                        if main:
+                            print(f"[best] epoch {epoch}: MAE {best:.3f}")
+                    if args.show and main:
+                        _save_sample_viz(args, state.model, test_ds, epoch,
+                                         logger, compute_dtype)
+                if main:
+                    logger.log(row, step=epoch)
+                summary["epochs"].append(row)
+    except CheckpointIOError as e:
+        if telemetry.incidents is not None:
+            # the typed give-up after exhausted retries: one bundle
+            telemetry.incidents.on_exception(e, phase="checkpoint")
+        raise
     finally:
         train_batcher.close()
         test_batcher.close()
         if logger is not None:
             logger.finish()
+        # one teardown order for clean exit, abort and SIGTERM
+        obs.shutdown_telemetry(telemetry, heartbeat=heartbeat, exporter=exporter)
     if item_cache is not None and main:
         print(f"[data] item cache: {item_cache.stats()}")
     summary["best_mae"] = best

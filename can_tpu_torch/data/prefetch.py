@@ -1,5 +1,6 @@
 """Batches put on the device ahead of the step that needs them
-(counterpart of ``can_tpu/data/prefetch.py:24-101``).
+(counterpart of ``can_tpu/data/prefetch.py:24-101``, the ``stall=``
+clock of the loops' telemetry included).
 
 ``prefetch_to_device`` runs the batch loading and the host-to-device put
 ``depth`` batches ahead in one background thread, while the device runs
@@ -17,6 +18,7 @@ loader thread would only compete with the CPU's own compute threads.
 from __future__ import annotations
 
 import collections
+import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, Dict, Iterable, Iterator, NamedTuple
 
@@ -104,14 +106,23 @@ def _landed(out):
 
 
 def prefetch_to_device(batches: Iterable, put_fn: Callable, *,
-                       depth: int = 2) -> Iterator:
+                       depth: int = 2, stall=None) -> Iterator:
     """Yield ``put_fn(batch)`` for each batch, computed ``depth`` ahead in
     a background thread.  ``depth <= 0`` is the synchronous path (each
     batch loaded and put when it is due; exceptions propagate as they
-    are)."""
+    are).  ``stall``: an ``obs.StallClock`` that accumulates the time the
+    consumer was BLOCKED — on the synchronous path every put (nothing
+    overlaps it), else only a wait for a batch whose load had not
+    finished."""
     if depth <= 0:
         for b in batches:
-            yield _landed(put_fn(b))
+            if stall is not None:
+                t0 = time.perf_counter()
+                out = put_fn(b)
+                stall.add(time.perf_counter() - t0)
+            else:
+                out = put_fn(b)
+            yield _landed(out)
         return
 
     it = iter(batches)
@@ -138,7 +149,13 @@ def prefetch_to_device(batches: Iterable, put_fn: Callable, *,
     try:
         queue = collections.deque(submit() for _ in range(depth))
         while queue:
-            result = queue.popleft().result()
+            fut = queue.popleft()
+            if stall is not None and not fut.done():
+                t0 = time.perf_counter()
+                result = fut.result()
+                stall.add(time.perf_counter() - t0)
+            else:
+                result = fut.result()
             if result is done:
                 break
             queue.append(submit())

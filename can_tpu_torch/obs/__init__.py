@@ -15,9 +15,13 @@ Quickstart (what the serve CLI wires up from ``--telemetry-dir``)::
         obs.shutdown_telemetry(tel, heartbeat=hb)
 
 Every layer that does device work takes an optional ``telemetry`` and
-stays zero-cost when it is None.  Not ported yet (ROADMAP Queue 1 item
-5b): the cost ledger (``ProgramCostLedger``) and the trace window
-(``StepTraceWindow``, ``parse_trace_steps``).
+stays zero-cost when it is None.  The device side (ROADMAP Queue 1 item
+5b, done): the cost ledger (``ProgramCostLedger``: per-program flops and
+bytes counted on each first call, MFU against ``cli.common``'s peaks,
+roofline class, the launch-cost fit) and the step trace window
+(``StepTraceWindow``, ``parse_trace_steps``: ``--trace-steps`` on
+``torch.profiler``).  ``__all__`` is the JAX package's; ``ProgramCost``
+(a ledger row) is importable here as there.
 """
 
 from can_tpu_torch.obs.bus import (
@@ -33,6 +37,7 @@ from can_tpu_torch.obs.collector import (
     CollectorPushSink,
     FleetCollector,
 )
+from can_tpu_torch.obs.costs import ProgramCost, ProgramCostLedger
 from can_tpu_torch.obs.exporter import (
     GaugeSink,
     MetricsExporter,
@@ -69,6 +74,7 @@ from can_tpu_torch.obs.sources import (
     emit_memory,
 )
 from can_tpu_torch.obs.spans import SpanTracer
+from can_tpu_torch.obs.trace import StepTraceWindow, parse_trace_steps
 
 __all__ = [
     "COLLECTOR_HOST_ID",
@@ -85,6 +91,7 @@ __all__ = [
     "MetricLoggerSink",
     "MetricsExporter",
     "PlateauDetector",
+    "ProgramCostLedger",
     "RecompileTracker",
     "SloEngine",
     "SloObjective",
@@ -92,6 +99,7 @@ __all__ = [
     "SpanTracer",
     "StallClock",
     "StdoutSink",
+    "StepTraceWindow",
     "Telemetry",
     "ThroughputDetector",
     "device_memory_snapshot",
@@ -102,6 +110,7 @@ __all__ = [
     "install_sigterm_handler",
     "load_slo_spec",
     "open_host_telemetry",
+    "parse_trace_steps",
     "read_events",
     "read_events_counted",
     "render_stats",

@@ -13,7 +13,8 @@ WARN about:
   first-launch bill on the calling thread (cuDNN's algorithm choice, the
   caching allocator's first blocks at that size, a kernel's first
   build); ``EpochStats.distinct_shapes`` is a bare count with no timing
-  or attribution.
+  or attribution.  With a cost ledger on the bus the first call is also
+  the one whose flops and bytes are counted (``obs/costs.py``).
 * ``StallClock`` — input-pipeline starvation: seconds the consumer spent
   blocked waiting for the prefetcher's next batch.
 * ``device_memory_snapshot`` / ``emit_memory`` — device memory pressure,
@@ -71,18 +72,26 @@ class RecompileTracker:
             self.last_first_call = False
             return self._fn(*args)
         self.last_first_call = True
+        # perf-attribution hook: with a cost ledger on the bus
+        # (Telemetry.ledger) the first call runs inside the ledger's
+        # counting scope (obs/costs.py), and the new signature's
+        # flops/bytes ride this same compile event
+        ledger = getattr(self._tel, "ledger", None)
+        scope = None
         t0 = time.perf_counter()
-        out = self._fn(*args)
+        if ledger is None:
+            out = self._fn(*args)
+        else:
+            from can_tpu_torch.obs.costs import count_costs
+
+            with count_costs() as scope:
+                out = self._fn(*args)
         dt = time.perf_counter() - t0
         self._seen[sig] = dt
         payload = dict(name=self._name, signature=[list(s) for s in sig],
                        seconds=round(dt, 4), n_signatures=len(self._seen))
-        # perf-attribution hook: with a cost ledger on the bus
-        # (Telemetry.ledger; none is armed until the port has one), the
-        # new signature's flops/bytes ride this same compile event
-        ledger = getattr(self._tel, "ledger", None)
         if ledger is not None:
-            cost = ledger.register(self._name, sig, fn=self._fn, args=args)
+            cost = ledger.register(self._name, sig, cost=scope.totals())
             if cost is not None:
                 payload.update(cost)
         self._tel.emit("compile", **payload)

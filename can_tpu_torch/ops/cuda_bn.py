@@ -32,12 +32,14 @@ scratch per (device, stream), and each launch leaves the ticket at 0.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import threading
 from typing import Dict, Optional, Tuple
 
 import torch
 
+from can_tpu_torch.obs.costs import current_scope, seam_cost
 from can_tpu_torch.ops._build import load_kernel_library
 
 KERNEL = "bn_moments"
@@ -256,6 +258,9 @@ class MomentSums(torch.autograd.Function):
     @staticmethod
     def forward(ctx, y, m):
         ctx.save_for_backward(y, m)
+        # the backward may run on autograd's device thread, which sees no
+        # thread-local scope: it bills the forward's
+        ctx.cost_scope = current_scope()
         s1, s2, s0 = moment_sums_cuda(y, m)
         ctx.mark_non_differentiable(s0)
         return s1, s2, s0
@@ -263,19 +268,50 @@ class MomentSums(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g1, g2, g0):
         y, m = ctx.saved_tensors
-        if y.is_cuda:
-            return moment_sums_backward_cuda(y, m, g1, g2), None
-        return moment_sums_vjp_plain(y, m, g1, g2), None
+        scope = getattr(ctx, "cost_scope", None)
+        with (seam_cost(*moment_sums_backward_cost(y, m), scope=scope)
+              if scope is not None else contextlib.nullcontext()):
+            if y.is_cuda:
+                return moment_sums_backward_cuda(y, m, g1, g2), None
+            return moment_sums_vjp_plain(y, m, g1, g2), None
+
+
+def moment_sums_cost(y: torch.Tensor, m: torch.Tensor) -> Tuple[float, float]:
+    """The forward kernel's work, ``(FLOP, bytes)``: 4 f32 operations per
+    element of y; y and m read once, the (2C + 1) f32 sums written — the
+    count of ``chip_smoke.py``'s bound and of the cost ledger's seam."""
+    c = y.shape[-1]
+    return (4.0 * y.numel(), float(y.numel() * y.element_size()
+                                   + m.numel() * m.element_size() + (2 * c + 1) * 4))
+
+
+def moment_sums_backward_cost(y: torch.Tensor, m: torch.Tensor) -> Tuple[float, float]:
+    """The backward kernel's work: 3 f32 operations per element of y; y
+    and m read, g1 and g2 read, dy (y's shape and dtype) written."""
+    c = y.shape[-1]
+    return (3.0 * y.numel(), float(2 * y.numel() * y.element_size()
+                                   + m.numel() * m.element_size() + 2 * c * 4))
 
 
 def moment_sums(y: torch.Tensor, m: torch.Tensor) -> Tuple[torch.Tensor, ...]:
     """Device dispatch: ``(y (B, h, w, C), m (B, h, w, 1)) -> (s1 (C,),
     s2 (C,), s0 ())`` with an f32 floor on the sums (f64 y keeps f64 on
     the CPU).  A CPU tensor takes the plain version, a CUDA tensor the
-    kernels through ``MomentSums``."""
+    kernels through ``MomentSums``.  Inside a cost ledger's counting
+    scope (``obs.costs``) the forward counts as ``moment_sums_cost`` on
+    either device, and ``MomentSums.backward`` as
+    ``moment_sums_backward_cost``."""
+    if y.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"bn_moments runs on cpu or cuda, got {y.device}")
+    scope = current_scope()
+    if scope is None:
+        return _moment_sums(y, m)
+    with seam_cost(*moment_sums_cost(y, m), scope=scope):
+        return _moment_sums(y, m)
+
+
+def _moment_sums(y: torch.Tensor, m: torch.Tensor) -> Tuple[torch.Tensor, ...]:
     if y.device.type == "cpu":
         acc = torch.float64 if y.dtype == torch.float64 else torch.float32
         return masked_moment_sums(y.to(acc), m.to(acc))
-    if y.device.type == "cuda":
-        return MomentSums.apply(y, m)
-    raise ValueError(f"bn_moments runs on cpu or cuda, got {y.device}")
+    return MomentSums.apply(y, m)

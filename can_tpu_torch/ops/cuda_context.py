@@ -60,6 +60,7 @@ from typing import Sequence, Tuple
 
 import torch
 
+from can_tpu_torch.obs.costs import current_scope, seam_cost
 from can_tpu_torch.ops._build import load_kernel_library
 from can_tpu_torch.ops.resize import upsample_matrix
 
@@ -266,14 +267,36 @@ class ContextTail(torch.autograd.Function):
         return tuple(next(grads) if t.requires_grad else None for t in leaves)
 
 
+def tail_cost(fv, avew, uh, wmat) -> Tuple[float, float]:
+    """The kernel's work on these inputs, ``(FLOP, bytes)``: the four gate
+    products, the row interpolation and the elementwise work; each input
+    read once and fi (fv's shape and dtype) written once — the count of
+    ``chip_smoke.py``'s bound and of the cost ledger's seam."""
+    b, h, w, c = fv.shape
+    n = b * h * w
+    flops = 2 * 4 * n * c * c + 2 * N_ROWS * n * c + 6 * 4 * n * c
+    nbytes = sum(t.numel() * t.element_size() for t in (fv, avew, uh, wmat, fv))
+    return float(flops), float(nbytes)
+
+
 def context_tail(fv, avew, uh, wmat) -> torch.Tensor:
     """Device dispatch: the plain version for a CPU tensor, the kernel
-    (with its recompute backward) for a CUDA tensor."""
+    (with its recompute backward) for a CUDA tensor.  Inside a cost
+    ledger's counting scope (``obs.costs``) the call counts as the
+    kernel's ``tail_cost`` on either device."""
+    if fv.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"context_fused runs on cpu or cuda, got {fv.device}")
+    scope = current_scope()
+    if scope is None:
+        return _context_tail(fv, avew, uh, wmat)
+    with seam_cost(*tail_cost(fv, avew, uh, wmat), scope=scope):
+        return _context_tail(fv, avew, uh, wmat)
+
+
+def _context_tail(fv, avew, uh, wmat) -> torch.Tensor:
     if fv.device.type == "cpu":
         return context_tail_reference(fv, avew, uh, wmat)
-    if fv.device.type == "cuda":
-        return ContextTail.apply(fv, avew, uh, wmat)
-    raise ValueError(f"context_fused runs on cpu or cuda, got {fv.device}")
+    return ContextTail.apply(fv, avew, uh, wmat)
 
 
 def pack_inputs(fv, aves, weights, hw, row0=None):

@@ -25,6 +25,10 @@ batches, the CANNet forward, then the masked per-image count reduction
 With a ``telemetry`` bus the engine emits the reference's events: one
 ``compile`` per new batch signature (``obs.RecompileTracker``'s payload:
 the signature's first call, timed) and one ``serve.warmup`` per warmup.
+With a cost ledger on the bus (``Telemetry.ledger``) that first call's
+forward runs inside the ledger's counting scope: the signature is
+registered under the engine's ``name`` and the ``compile`` event carries
+its ``flops`` and ``bytes_accessed``.
 
 When the forward computes in f32 (f32 and int8) the engine turns TF32
 off — ``torch.backends.cudnn.allow_tf32 = False`` and matmul precision
@@ -34,6 +38,7 @@ would shift counts by about 1e-3.  These are process-wide settings.
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import threading
 import time
@@ -45,6 +50,7 @@ import torch
 from can_tpu_torch.data.batching import Batch, pad_batch
 from can_tpu_torch.device import use_full_f32
 from can_tpu_torch.models.cannet import CANNet
+from can_tpu_torch.obs.costs import count_costs
 from can_tpu_torch.sched import normalize_sizes
 from can_tpu_torch.serve.quant import (
     compute_dtype_for,
@@ -176,15 +182,22 @@ class ServeEngine:
         first = sig not in self._signatures
         self._last_compiled = first
         self._signatures.add(sig)
+        # a new signature's first call runs inside the cost ledger's
+        # counting scope when one rides the bus (obs/costs.py)
+        ledger = (getattr(self.telemetry, "ledger", None)
+                  if first and self.telemetry is not None else None)
+        scope = None
         t0 = time.perf_counter()
         with self._lock, torch.inference_mode():
             t = {"image": self._put_batch(batch.image),
                  "dmap": self._put_batch(batch.dmap),
                  "pixel_mask": self._put_batch(batch.pixel_mask),
                  "sample_mask": self._put_batch(batch.sample_mask)}
-            image = normalize_on_device(t["image"], t["pixel_mask"])
-            pred = self.forward(image)
-            counts, _ = density_counts(pred, t)
+            with (count_costs() if ledger is not None
+                  else contextlib.nullcontext()) as scope:
+                image = normalize_on_device(t["image"], t["pixel_mask"])
+                pred = self.forward(image)
+                counts, _ = density_counts(pred, t)
             density = None
             if want_density:
                 mask = t["pixel_mask"] * t["sample_mask"][:, None, None, None]
@@ -193,11 +206,15 @@ class ServeEngine:
         if first and self.telemetry is not None:
             fields = {k: getattr(batch, k) for k in
                       ("image", "dmap", "pixel_mask", "sample_mask")}
-            self.telemetry.emit(
-                "compile", name=self.name,
-                signature=[list(s) for s in batch_signature(fields)],
-                seconds=round(time.perf_counter() - t0, 4),
-                n_signatures=len(self._signatures))
+            sig = batch_signature(fields)
+            payload = dict(name=self.name, signature=[list(s) for s in sig],
+                           seconds=round(time.perf_counter() - t0, 4),
+                           n_signatures=len(self._signatures))
+            if ledger is not None:
+                cost = ledger.register(self.name, sig, cost=scope.totals())
+                if cost is not None:
+                    payload.update(cost)
+            self.telemetry.emit("compile", **payload)
         return counts, density
 
     def swap_params(self, state_dict, *, quantized: bool = False) -> None:

@@ -52,10 +52,12 @@ event kinds and payloads).
 
 * **The watchdog** — every launch carries a deadline
   (``priced_deadline_s``: the cost ledger's measured time x slack when
-  the telemetry has a ``ledger``, which it has not until ROADMAP Queue 1
-  item 5b; without one, ``watchdog_default_s`` for a warmed signature and
-  ``watchdog_compile_s`` for an unwarmed one, as the JAX fleet does
-  without a ledger).  An
+  the telemetry has a ``ledger`` — the CLIs arm one with any telemetry
+  flag, and each replica's engine registers its programs there under its
+  incarnation name, ``serve_predict_r{k}``, the prefix the fleet's own
+  ``name`` looks up; without one, or before a program has a reliable
+  timing, ``watchdog_default_s`` for a warmed signature and
+  ``watchdog_compile_s`` for an unwarmed one, as the JAX fleet does).  An
   overdue replica is marked ``wedged``, its batch re-dispatched under the
   redispatch-once rule, and the replica sent to probation; its thread is
   abandoned, never waited on.  On a GPU this contains a stalled HOST
@@ -104,10 +106,10 @@ REPLICA_WEDGED = "wedged"        # watchdog-declared hung launch
 REPLICA_DRAINING = "draining"    # scale-down: finish in-flight, exit
 
 # JAX's constructor defaults, fixed here until a caller needs another
-# value (item 5b's cost ledger is the first that could price the floor):
-# the age past which queued work is served regardless of cost, the
+# value: the age past which queued work is served regardless of cost, the
 # deadline margin that makes work urgent, the probation backoff's growth
-# per failed probe, and the least priced watchdog deadline
+# per failed probe, and the least priced watchdog deadline (the cost
+# ledger prices the deadline above it, ``priced_deadline_s``)
 STARVATION_AGE_S = 2.0
 DEADLINE_PRESSURE_S = 0.5
 PROBE_BACKOFF_FACTOR = 2.0

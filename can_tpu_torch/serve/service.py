@@ -20,7 +20,10 @@ sizes and flush deadlines; ``menu_budget=1`` with ``flush_policy="timer"``
 is the service without it (every launch padded to ``max_batch``, flushed
 on the ``max_wait_ms`` timer).  ``telemetry``: an object with
 ``emit(kind, **payload)`` that receives JAX's ``serve.request`` /
-``serve.batch`` / ``serve.reject`` events, or None.
+``serve.batch`` / ``serve.reject`` events, or None; with a cost ledger
+on it (``Telemetry.ledger``) every steady-state batch's fenced execute
+time feeds the ledger, and ``perf.summary`` is emitted at warmup, every
+``perf_summary_every`` batches and at close.
 """
 
 from __future__ import annotations
@@ -113,7 +116,9 @@ class CountService:
     (None = ``sched.DEFAULT_MENU_BUDGET``); flush_policy: "priced" or
     "timer".  ``menu_budget=1`` with ``"timer"`` runs without the core.
     stream_ttl_s / degrade_policy: the stream registry's TTL and ladder
-    ("priced" | "off").
+    ("priced" | "off").  perf_summary_every: batches per periodic
+    ``perf.summary`` with a cost ledger on the bus (<= 0: none between
+    the warmup's and the close's).
     """
 
     def __init__(self, engine: ServeEngine, *, max_batch: int = 8,
@@ -123,6 +128,7 @@ class CountService:
                  bucket_ladder=None, pad_multiple=None,
                  min_bucket_h: Optional[int] = None,
                  telemetry=None, clock=time.monotonic,
+                 perf_summary_every: int = 32,
                  menu_budget: Optional[int] = None,
                  flush_policy: str = "priced",
                  stream_ttl_s: float = 300.0,
@@ -174,9 +180,10 @@ class CountService:
                                     ds=engine.ds, telemetry=telemetry,
                                     clock=clock, on_reject=self._note_reject,
                                     sched=self.sched)
-        # request latency reservoir; read by HTTP threads while the
+        # request latency reservoir (skip_first=0: warmup() keeps first
+        # calls off the request path); read by HTTP threads while the
         # batcher thread records, hence under _lock
-        self.latency = StepTimer()
+        self.latency = StepTimer(skip_first=0)
         self._lock = threading.Lock()
         self._stats = {"submitted": 0, "completed": 0, "rejected": 0,
                        "degraded": 0,
@@ -196,6 +203,11 @@ class CountService:
         self._closed = False
         # image dtypes warmup() has run — the HTTP raw=1 gate
         self.warmed_dtypes: set = set()
+        # with a cost ledger on the bus (Telemetry.ledger): one
+        # perf.summary per this many batches keeps the can_tpu_mfu_*
+        # gauges live (0 or less: only the warmup's and the close's)
+        self.perf_summary_every = int(perf_summary_every)
+        self._perf_batches = 0
         self._trace_prefix = f"req-{os.getpid():x}{os.urandom(2).hex()}"
 
     def _emit(self, kind: str, **payload) -> None:
@@ -211,6 +223,11 @@ class CountService:
             bucket_shapes, self.max_batch, dtypes=dtypes,
             sizes=self.sched.menu if self.sched is not None else None)
         self.warmed_dtypes.update(np.dtype(dt) for dt in dtypes)
+        ledger = getattr(self.telemetry, "ledger", None)
+        if ledger is not None:
+            # every warmed program's flops/bytes (so its roofline class)
+            # is known now: published before traffic, MFU joins later
+            ledger.emit_summary(self.telemetry, phase="serve_warmup")
         return report
 
     def start(self) -> "CountService":
@@ -250,6 +267,9 @@ class CountService:
             # after the batcher: its shutdown flush enqueues final work,
             # which the replicas drain before their threads stop
             self._fleet.close()
+        ledger = getattr(self.telemetry, "ledger", None)
+        if ledger is not None:
+            ledger.emit_summary(self.telemetry, phase="serve_close")
         self._started = False
 
     def __enter__(self) -> "CountService":
@@ -593,6 +613,22 @@ class CountService:
                    realized_cost_px=round(realized, 1),
                    execute_s=round(execute_s, 6), compiled=compiled,
                    queue_depth=self.queue.depth(), **extra)
+        ledger = getattr(self.telemetry, "ledger", None)
+        if ledger is not None:
+            if not compiled:
+                # the steady-state (fenced) launch time of this program;
+                # a first call is the compile event's bill.  Fleet
+                # batches bill their replica's own program name
+                ledger.observe(program, tuple(batch.image.shape),
+                               execute_s, dtype=str(batch.image.dtype))
+            # under _lock: fleet workers complete concurrently
+            with self._lock:
+                self._perf_batches += 1
+                due = 0 < self.perf_summary_every <= self._perf_batches
+                if due:
+                    self._perf_batches = 0
+            if due:
+                ledger.emit_summary(self.telemetry, phase="serve")
 
     def _note_reject(self, reason: str, count: int = 1) -> None:
         """Count a rejection whose event (if any) was emitted already —

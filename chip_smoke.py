@@ -202,7 +202,34 @@ slice 11, right after fleet:
               then a spec whose p99 bound is half the fastest request of
               window (a) burns (``slo.burn``, ``can_tpu_slo_alerting`` on
               the GaugeSink) and an Autoscaler handed that sink adds a
-              replica with reason ``autoscale:slo_burn``;
+              replica with reason ``autoscale:slo_burn``.  Slice 12: window
+              (a)'s telemetry arms the cost ledger, so its JSONL holds
+              ``perf.summary`` at warmup, every 32 batches and at close
+              with ``serve_predict`` rows (flops, bytes, roofline, MFU),
+              every ``compile`` event the first call's flops and bytes, and
+              ``/metrics`` after the close ``can_tpu_mfu_weighted``; the
+              same CLI at ``--serve-dtype bf16`` (8 requests) prices its
+              ledger at the bf16 peak, and its MFU at close lies in (0, 1);
+slice 12, right after phase 4's training:
+   obs_train — the device side of telemetry on the train and eval CLIs:
+              80 synthetic train images, 40 at 576x768 and 40 at 512x640
+              (batch 8: each shape 5 steps, a first call and 4 timed), the
+              train CLI (BN model, --bn-impl kernel, one epoch and its
+              eval) with ``--telemetry-dir --trace-steps 2:4 --profile-dir
+              --metrics-port 0`` against the same run with telemetry off,
+              f32 and bf16: weights, momentum and running statistics
+              bitwise equal, the kernels' launches equal, the epoch's
+              ``perf.summary`` with ``train_step`` rows at both shapes (MFU
+              and a roofline class at (8, 576, 768)), the trace holding
+              exactly 2 optimizer steps and 2 x 16 records of each BN
+              kernel (every launch without a record is logged by its
+              place: the profiler's warm-up); the MFU, the ledger's
+              launch-cost fit, the epoch times and the steady-state step
+              medians on and off (CUDA
+              events at each step's start) reported.  The eval CLI on that
+              checkpoint
+              with the same flags against off: MAE and MSE within 1e-6,
+              launches equal, ``eval_step`` rows, a trace;
 slice 7, last:
    ddp      — data parallelism on the one card.  World 1 over NCCL: the
               train CLI under ``torchrun --standalone --nproc_per_node=1``
@@ -243,7 +270,8 @@ slice 10, after ddp:
 
 ``python3 chip_smoke.py --ddp-worker SPEC`` is one rank of the ddp or sp
 phase (the phase starts it; SPEC is the JSON the phase writes).
-``python3 chip_smoke.py --obs-only`` runs the build and the obs phase alone;
+``python3 chip_smoke.py --obs-only`` runs the build and the obs and
+obs_train phases alone;
 ``python3 chip_smoke.py --sp-only`` runs the build and the sp phase alone;
 ``python3 chip_smoke.py --sp-nccl``, on a machine with 4 GPUs, runs the
 build and the sp steps over NCCL with one rank per GPU (dp=1 x sp=2 on two,
@@ -257,7 +285,9 @@ versions of the port share (``moment_sums_cuda``, ``MomentSums``, the
 train step) — the BN table (``bn_time``) and the step split and profile
 (``step_breakdown``) — and no check, no serving, no result line: copied
 into an older checkout, it times that checkout's kernels by this
-script's methods, in the same chip call as this one.
+script's methods, in the same chip call as this one.  The card's peaks
+come from the checkout's ``cli/common.py`` table (PR 12 on; an older
+checkout has none and is refused).
 
 Imports torch, numpy, the standard library and ``can_tpu_torch`` — no JAX.
 """
@@ -331,11 +361,6 @@ BN_LAYERS = 16  # 10 frontend + 6 backend
 # one step with the kernel vs the same step with onepass: loss and new
 # running stats (f32; sums differ only in summation order)
 STEP_RTOL = 1e-4
-# published dense peaks (FLOP/s by dtype, bytes/s), NVIDIA's H100 SXM data
-# sheet: the one card this script has run on; any other card is refused
-# until its peaks are added here
-PEAKS = {"NVIDIA H100 80GB HBM3": {"f32": 67e12, "bf16": 989e12,
-                                   "bytes": 3.35e12}}
 
 
 def log(msg: str) -> None:
@@ -348,9 +373,19 @@ def fail(msg: str) -> None:
 
 
 def peaks_for(name: str) -> dict:
-    if name not in PEAKS:
-        fail(f"no peaks recorded for {name!r} (known: {sorted(PEAKS)})")
-    return PEAKS[name]
+    """The card's published dense peaks (FLOP/s by dtype, bytes/s) from
+    the port's one peak table, ``cli.common.device_peaks_for_kind`` (the
+    cost ledger's); a card missing from it is refused.  A checkout older
+    than that table (PR 12) has none: --measure-only there fails here."""
+    try:
+        from can_tpu_torch.cli.common import device_peaks_for_kind
+    except ImportError:
+        fail("this checkout's can_tpu_torch.cli.common has no peak table "
+             "(device_peaks_for_kind)")
+    p = device_peaks_for_kind(name)
+    if p is None:
+        fail(f"no peaks recorded for {name!r} in cli/common.py's table")
+    return {"f32": p.flops_f32, "bf16": p.flops_bf16, "bytes": p.hbm_bytes_s}
 
 
 def time_ms(fn, reps: int = 10) -> float:
@@ -450,25 +485,27 @@ def phase_build():
                      f"its SASS ({counts})")
 
 
+def _bound(flops: float, nbytes: float, peak_flops: float, peaks: dict):
+    """The least time for ``flops`` at ``peak_flops`` and ``nbytes`` at the
+    card's memory rate: (ms, "operations" or "bytes")."""
+    by_ops = flops / peak_flops * 1e3
+    by_bytes = nbytes / peaks["bytes"] * 1e3
+    return max(by_ops, by_bytes), "operations" if by_ops >= by_bytes else "bytes"
+
+
 def context_bound(fv, avew, uh, wmat, peaks: dict):
-    """Least time for the context tail on these inputs: the four gate
-    products, the row interpolation and the elementwise work at the peak
-    of fv's dtype, against each input read once and fi written once.
+    """Least time for the context tail on these inputs: the kernel's work
+    as the cost ledger counts it (``cuda_context.tail_cost``: the four
+    gate products, the row interpolation and the elementwise work; each
+    input read once and fi written once) at the peak of fv's dtype.
     Returns (ms, "operations" or "bytes", FLOP, bytes)."""
     import torch
 
     from can_tpu_torch.ops import cuda_context as cc
 
-    b, h, w, c = fv.shape
-    n = b * h * w
-    flops = 2 * 4 * n * c * c + 2 * cc.N_ROWS * n * c + 6 * 4 * n * c
-    # inputs read once, fi (fv's shape and dtype) written once
-    nbytes = sum(t.numel() * t.element_size() for t in (fv, avew, uh, wmat, fv))
+    flops, nbytes = cc.tail_cost(fv, avew, uh, wmat)
     peak = peaks["bf16" if fv.dtype == torch.bfloat16 else "f32"]
-    by_ops = flops / peak * 1e3
-    by_bytes = nbytes / peaks["bytes"] * 1e3
-    return (max(by_ops, by_bytes), "operations" if by_ops >= by_bytes else "bytes",
-            flops, nbytes)
+    return (*_bound(flops, nbytes, peak, peaks), flops, nbytes)
 
 
 CONTEXT_SHAPES =((8, 96, 128, 512), (8, 72, 96, 512), (2, 47, 61, 512))
@@ -1812,6 +1849,7 @@ def phase_fleet(pth: Path, card: str) -> dict:
 # service with telemetry off; then the incident path on a two-replica
 # fleet and an SLO burn that scales it
 OBS_REQUESTS = 48
+OBS_BF16_REQUESTS = 8  # the bf16 service's, for its ledger's MFU at close
 # span children may start/end within the 6-digit rounding of the root's
 OBS_SPAN_SLACK_S = 2e-6
 OBS_PROM_LINE = r"^[a-zA-Z_:][a-zA-Z0-9_:]*(\{[^}]*\})? (-?[0-9.e+E-]+|NaN|[+-]Inf)$"
@@ -1852,7 +1890,8 @@ def obs_stack(argv):
 
     args = cli.parse_args(argv)
     validate_incident_args(args)
-    tel, hb, exporter = build_telemetry(args, host_id=0, install_signals=False)
+    tel, hb, exporter = build_telemetry(args, host_id=0, install_signals=False,
+                                        trace_window=None)
     return args, tel, hb, exporter
 
 
@@ -1887,6 +1926,38 @@ def obs_check_jsonl(path: Path, n: int, batches: int) -> list:
     return events
 
 
+def obs_bf16_ledger(base: list, work: Path, images) -> dict:
+    """The serve CLI at ``--serve-dtype bf16`` with ``--telemetry-dir``:
+    its ledger prices MFU at the bf16 peak, and the MFU it reads at close
+    lies in (0, 1).  Returns the close's perf.summary."""
+    from can_tpu_torch import obs
+    from can_tpu_torch.cli import serve as cli
+
+    args, tel, hb, exporter = obs_stack(
+        base + ["--serve-dtype", "bf16", "--telemetry-dir", str(work / "tel_bf16")])
+    try:
+        svc = cli.build_service(args, telemetry=tel)
+        with svc:
+            obs_http(svc, images)
+        compute, peak = tel.ledger.compute, tel.ledger.peaks.flops("bf16")
+    finally:
+        obs.shutdown_telemetry(tel, heartbeat=hb, exporter=exporter)
+    perf = [json.loads(x)["payload"] for x in
+            (work / "tel_bf16" / "telemetry.host0.jsonl").read_text().splitlines()
+            if json.loads(x)["kind"] == "perf.summary"]
+    last = perf[-1] if perf else {}
+    mfu = last.get("mfu_weighted")
+    if compute != "bf16" or last.get("peak_flops") != peak \
+            or mfu is None or not 0 < mfu < 1:
+        fail(f"[obs] --serve-dtype bf16: ledger compute {compute!r}, "
+             f"perf.summary at close priced at {last.get('peak_flops')} "
+             f"FLOP/s (the bf16 peak is {peak}), mfu_weighted {mfu}: want "
+             f"bf16, its peak, and 0 < MFU < 1")
+    log(f"[obs] --serve-dtype bf16, {len(images)} requests: ledger priced at "
+        f"the bf16 peak {peak / 1e12:.0f} TFLOP/s, mfu_weighted {mfu} at close")
+    return last
+
+
 def obs_window_a(pth: Path, work: Path, images, count) -> dict:
     """Telemetry on (the five flags) against off, 48 requests each."""
     import re
@@ -1916,6 +1987,10 @@ def obs_window_a(pth: Path, work: Path, images, count) -> dict:
                     f"http://127.0.0.1:{exporter.port}/metrics", timeout=30) as r:
                 metrics = r.read().decode()
         st_on = on.stats()
+        # after the close: its perf.summary carries every batch's timing
+        with urllib.request.urlopen(
+                f"http://127.0.0.1:{exporter.port}/metrics", timeout=30) as r:
+            closed_metrics = r.read().decode()
     finally:
         obs.shutdown_telemetry(tel, heartbeat=hb, exporter=exporter)
     off = cli.build_service(cli.parse_args(base))
@@ -1923,6 +1998,7 @@ def obs_window_a(pth: Path, work: Path, images, count) -> dict:
     with off:
         got_off = obs_http(off, images)
     st_off = off.stats()
+    obs_bf16_ledger(base, work, images[:OBS_BF16_REQUESTS])
     launches, calls = cc.LAUNCHES, count.n - c0
     if got_on["counts"] != got_off["counts"]:
         worst = max(abs(a - b) / max(abs(b), 1e-30)
@@ -1956,6 +2032,31 @@ def obs_window_a(pth: Path, work: Path, images, count) -> dict:
     if os.listdir(work / "inc"):
         fail(f"[obs] a clean window wrote incident bundles "
              f"{os.listdir(work / 'inc')}")
+    perf = [e["payload"] for e in events if e["kind"] == "perf.summary"]
+    compiles = [e["payload"] for e in events if e["kind"] == "compile"]
+    mfu_gauges = [x for x in closed_metrics.splitlines()
+                  if x.startswith("can_tpu_mfu_weighted ")]
+    want_phases = (["serve_warmup"] + ["serve"] * (st_on["batches"] // 32)
+                   + ["serve_close"])
+    if [p["phase"] for p in perf] != want_phases \
+            or not all(r["name"] == "serve_predict" and r["flops"]
+                       for p in perf for r in p["detail"]) \
+            or not all(c.get("flops") and c.get("bytes_accessed") for c in compiles) \
+            or perf[-1].get("mfu_weighted") is None or not mfu_gauges:
+        fail(f"[obs] cost ledger: perf.summary phases "
+             f"{[p['phase'] for p in perf]} (want {want_phases}: warmup, one "
+             f"per 32 batches, close), rows {[(r['name'], r['flops']) for p in perf[-1:] for r in p['detail']]}, "
+             f"compile costs {[(c.get('flops'), c.get('bytes_accessed')) for c in compiles]}, "
+             f"/metrics after the close {mfu_gauges}")
+    for r in perf[-1]["detail"]:
+        log(f"[obs] serve ledger row {r['name']} {tuple(r['shape'])} "
+            f"{r['dtype']}: {r['flops'] / 1e9:.2f} GFLOP, "
+            f"{r['bytes_accessed'] / 1e9:.3f} GB accessed (unfused), "
+            f"intensity {r['intensity']}, {r['roofline']}-bound, launches "
+            f"{r['launches']}, mean {r['mean_s']} s, MFU {r['mfu']}")
+    log(f"[obs] serve perf.summary at close: mfu_weighted "
+        f"{perf[-1]['mfu_weighted']} against {perf[-1]['peak_source']} "
+        f"({perf[-1]['peak_flops'] / 1e12:.0f} TFLOP/s); /metrics {mfu_gauges[0]}")
     kinds = {}
     for e in events:
         kinds[e["kind"]] = kinds.get(e["kind"], 0) + 1
@@ -2135,6 +2236,354 @@ def phase_obs(pth: Path, work: Path) -> dict:
     return {"bn": 0, "bn_backward": 0, "context": a["launches"] + b}
 
 
+# [obs] train and eval windows (slice 12): the train CLI with the cost
+# ledger, the step trace window and the metrics exporter on, against the
+# same run with telemetry off; then the eval CLI on that checkpoint, on
+# and off.  Two launch shapes, each OBS_TRAIN_STEPS times: a first call
+# plus four timed launches (MIN_UNFENCED_LAUNCHES), so the ledger's MFU
+# and its launch-cost fit have what they need (nine timed launches read
+# the same MFU on the card, PERF.md §6 PR 12, for 20 s more)
+OBS_TRAIN_SIZES = ((576, 768), (512, 640))
+OBS_TRAIN_STEPS = 5
+# --trace-steps 2:4: steps 2 and 3, whose trace holds exactly 2 x 16
+# records of each BN kernel.  A window one step off holds 16 or 48; a
+# session that loses its first launches' records (as it did before
+# obs.trace warmed the profiler up) holds 31
+OBS_TRACE = (2, 4)
+OBS_EVAL_RTOL = 1e-6
+
+
+def obs_train_data(work: Path) -> Path:
+    """TRAIN_BATCH x OBS_TRAIN_STEPS images at each of OBS_TRAIN_SIZES
+    (train; whole batches, so every step is one of the two shapes) and
+    TEST_ITEMS mixed (test)."""
+    import shutil
+
+    from can_tpu_torch.data import make_synthetic_dataset
+
+    root = work / "synth"
+    for sub in ("images", "ground_truth"):
+        (root / "train_data" / sub).mkdir(parents=True)
+    n, per = 0, TRAIN_BATCH * OBS_TRAIN_STEPS
+    for i, size in enumerate(OBS_TRAIN_SIZES):
+        part = work / f"part{i}"
+        make_synthetic_dataset(str(part), per, sizes=(size,), seed=SEED + 20 + i)
+        for k in range(per):
+            for sub, ext in (("images", "png"), ("ground_truth", "npy")):
+                (part / sub / f"IMG_{k:04d}.{ext}").rename(
+                    root / "train_data" / sub / f"IMG_{n:04d}.{ext}")
+            n += 1
+        shutil.rmtree(part)
+    make_synthetic_dataset(str(root / "test_data"), TEST_ITEMS,
+                           sizes=OBS_TRAIN_SIZES, seed=SEED + 22)
+    return root
+
+
+def _launch_counts() -> dict:
+    from can_tpu_torch.ops import cuda_bn as cb
+    from can_tpu_torch.ops import cuda_context as cc
+
+    return {"bn": cb.LAUNCHES, "bn_backward": cb.BACKWARD_LAUNCHES,
+            "context": cc.LAUNCHES}
+
+
+def _reset_launches() -> None:
+    from can_tpu_torch.ops import cuda_bn as cb
+    from can_tpu_torch.ops import cuda_context as cc
+
+    cb.reset_launches()
+    cc.reset_launches()
+
+
+def _tel_argv(d: Path) -> list:
+    return ["--telemetry-dir", str(d / "tel"), "--trace-steps",
+            f"{OBS_TRACE[0]}:{OBS_TRACE[1]}", "--profile-dir", str(d / "prof"),
+            "--metrics-port", "0"]
+
+
+def _step_periods(marks: list, first: set) -> list:
+    """Each step's period in ms, from its start event to the next step's
+    (the last step has none): ``[(ordinal, shape, group, ms)]``, the group
+    ``first`` for the first call of a shape (the counting scope runs in
+    it), ``window`` for the steps whose period holds the trace window
+    (ordinals OBS_TRACE[0] - 1 .. OBS_TRACE[1] - 1: the start's sync, the
+    profiled steps, the stop and the export), else ``steady``."""
+    import torch
+
+    torch.cuda.synchronize()
+    window = set(range(OBS_TRACE[0] - 1, OBS_TRACE[1]))
+    return [(k, marks[k][0],
+             "first" if k in first else "window" if k in window else "steady",
+             marks[k][1].elapsed_time(marks[k + 1][1]))
+            for k in range(len(marks) - 1)]
+
+
+def _timed_epochs(marks: list, first: set):
+    """``train_one_epoch`` with a CUDA event recorded as each step starts
+    (inside the loop's own instrumentation, the same on both runs; an
+    event is no kernel launch and touches no tensor)."""
+    import torch
+
+    from can_tpu_torch import train as tr
+
+    real = tr.train_one_epoch
+
+    def epoch(train_step, state, batches, **kw):
+        def step(state, dev):
+            shape = tuple(dev["image"].shape)
+            if shape not in {m[0] for m in marks}:
+                first.add(len(marks))
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            marks.append((shape, ev))
+            return train_step(state, dev)
+
+        return real(step, state, batches, **kw)
+
+    return real, epoch
+
+
+def obs_train_run(root: Path, work: Path, bf16: bool, telemetry: bool) -> dict:
+    """The train CLI (BN model, kernel moments, batch 8, one epoch and its
+    eval); its summary, wall time, the launches of this run and its step
+    periods (``_step_periods``)."""
+    from can_tpu_torch import train as tr
+    from can_tpu_torch.cli import train as cli
+
+    d = work / f"train_{'bf16' if bf16 else 'f32'}_{'on' if telemetry else 'off'}"
+    argv = ["--data_root", str(root), "--syncBN", "--bn-impl", "kernel",
+            "--batch-size", str(TRAIN_BATCH), "--pad-multiple", str(TRAIN_PAD),
+            "--epochs", "1", "--lr", "1e-6", "--seed", str(SEED),
+            "--checkpoint-dir", str(d / "ck")]
+    argv += (["--bf16"] if bf16 else []) + (_tel_argv(d) if telemetry else [])
+    marks, first = [], set()
+    real, tr.train_one_epoch = _timed_epochs(marks, first)
+    try:
+        _reset_launches()  # the main path starts here
+        t0 = time.perf_counter()
+        summary = cli.train(cli.parse_args(argv))
+        wall = time.perf_counter() - t0
+        launches = _launch_counts()  # ... and ends here
+    finally:
+        tr.train_one_epoch = real
+    return {"summary": summary, "wall_s": wall, "launches": launches, "dir": d,
+            "periods": _step_periods(marks, first)}
+
+
+def _state_tensors(ckpt: Path) -> dict:
+    """Every tensor of a checkpoint's state (weights, running statistics,
+    momentum), by path."""
+    import torch
+
+    out = {}
+
+    def walk(x, key):
+        if isinstance(x, dict):
+            for k, v in x.items():
+                walk(v, f"{key}.{k}")
+        elif isinstance(x, (list, tuple)):
+            for i, v in enumerate(x):
+                walk(v, f"{key}.{i}")
+        elif isinstance(x, torch.Tensor):
+            out[key] = x
+
+    state = torch.load(ckpt / "0" / "state.pt", weights_only=True)
+    for part in ("model", "optimizer"):
+        walk(state[part], part)
+    return out
+
+
+def trace_counts(prof: Path) -> dict:
+    """The one Chrome trace a window wrote: optimizer steps (CPU-side
+    annotations, one per train step), BN kernel records, and the window's
+    launches that left no kernel record (matched by CUPTI's correlation
+    id: ``lost``, each as its API call, its ms after the window's first
+    launch, its ordinal among that call's launches in the window, and the
+    optimizer steps before it)."""
+    files = sorted(prof.iterdir()) if prof.is_dir() else []
+    if len(files) != 1:
+        fail(f"[obs] {prof} holds {[f.name for f in files]}: want one trace")
+    events = json.loads(files[0].read_text())["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    names = [e.get("name", "") for e in kernels]
+    seen = {e.get("args", {}).get("correlation") for e in kernels}
+    launches = sorted((e for e in events
+                       if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                       and "LaunchKernel" in e.get("name", "")),
+                      key=lambda e: e["ts"])
+    steps_end = sorted(e["ts"] + e.get("dur", 0) for e in events
+                       if e.get("cat") == "user_annotation"
+                       and e.get("name", "").startswith("Optimizer.step#"))
+    lost, ordinal = [], {}
+    for e in launches:
+        api = e["name"]
+        ordinal[api] = ordinal.get(api, -1) + 1
+        if e.get("args", {}).get("correlation") not in seen:
+            lost.append({"api": api,
+                         "ms": round((e["ts"] - launches[0]["ts"]) / 1e3, 3),
+                         "of_api": f"{ordinal[api]}/{sum(x['name'] == api for x in launches)}",
+                         "after_steps": sum(t < e["ts"] for t in steps_end)})
+    return {"steps": len(steps_end),
+            "bn": sum("bn_moments_ring_kernel" in k for k in names),
+            "bn_backward": sum("bn_moments_backward_kernel" in k for k in names),
+            "kernels": len(kernels), "launches": len(launches),
+            "window_ms": round((launches[-1]["ts"] - launches[0]["ts"]) / 1e3, 3)
+            if launches else 0.0,
+            "lost": lost, "bytes": files[0].stat().st_size}
+
+
+def check_obs_train(on: dict, off: dict, tag: str) -> dict:
+    """The train window's gates; returns the reported numbers."""
+    steps = on["summary"]["steps"]
+    if steps != off["summary"]["steps"] or steps != 2 * OBS_TRAIN_STEPS:
+        fail(f"[obs] train {tag}: {steps} steps on, {off['summary']['steps']} "
+             f"off; want {2 * OBS_TRAIN_STEPS}")
+    a, b = _state_tensors(on["dir"] / "ck"), _state_tensors(off["dir"] / "ck")
+    diff = sorted(k for k in a if k not in b or not bool((a[k] == b[k]).all()))
+    if a.keys() != b.keys() or diff:
+        fail(f"[obs] train {tag}: telemetry on and off differ in {diff[:5]} "
+             f"(of {len(a)} tensors): training must be bitwise the same")
+    if on["launches"] != off["launches"] \
+            or on["launches"]["bn"] != BN_LAYERS * steps:
+        fail(f"[obs] train {tag}: launches on {on['launches']} against off "
+             f"{off['launches']} (bn_moments want {BN_LAYERS} x {steps})")
+    events = [json.loads(x) for x in
+              (on["dir"] / "tel" / "telemetry.host0.jsonl").read_text().splitlines()]
+    perf = [e["payload"] for e in events
+            if e["kind"] == "perf.summary" and e["payload"]["phase"] == "train"]
+    rows = {tuple(r["shape"]): r for r in perf[-1]["detail"]
+            if r["name"] == "train_step"} if perf else {}
+    big = rows.get((TRAIN_BATCH, *OBS_TRAIN_SIZES[0], 3))
+    if not big or big["mfu"] is None or big["roofline"] not in ("compute", "memory") \
+            or len(rows) != len(OBS_TRAIN_SIZES):
+        fail(f"[obs] train {tag}: the epoch's perf.summary rows {rows}: want "
+             f"train_step at both shapes, MFU and a roofline class at "
+             f"{(TRAIN_BATCH, *OBS_TRAIN_SIZES[0], 3)}")
+    tr = trace_counts(on["dir"] / "prof")
+    span = OBS_TRACE[1] - OBS_TRACE[0]
+    want = span * BN_LAYERS
+    if tr["steps"] != span or tr["bn"] != want or tr["bn_backward"] != want:
+        fail(f"[obs] train {tag}: the --trace-steps {OBS_TRACE[0]}:"
+             f"{OBS_TRACE[1]} trace holds {tr['steps']} optimizer steps, "
+             f"{tr['bn']} bn_moments and {tr['bn_backward']} "
+             f"bn_moments_backward kernel records; want {span}, and {want} "
+             f"of each; launches without a record {tr['lost']} of "
+             f"{tr['launches']} over {tr['window_ms']} ms")
+    summ = perf[-1]
+    for shape, r in sorted(rows.items()):
+        log(f"[obs] train {tag} ledger row {shape}: {r['flops'] / 1e12:.3f} "
+            f"TFLOP, {r['bytes_accessed'] / 1e9:.2f} GB accessed (unfused), "
+            f"intensity {r['intensity']}, {r['roofline']}-bound, "
+            f"{r['launches']} timed launches, mean {r['mean_s']} s, MFU "
+            f"{r['mfu']}")
+    fit = {k: summ.get(k) for k in ("launch_cost_fit_name", "rate_mpx_s",
+                                    "intercept_s", "launch_cost_mpx_empirical",
+                                    "launch_cost_drift", "fit_points")}
+    log(f"[obs] train {tag} (reported, not gated): MFU {big['mfu']} at "
+        f"{(TRAIN_BATCH, *OBS_TRAIN_SIZES[0], 3)} against "
+        f"{summ['peak_source']} {summ['peak_flops'] / 1e12:.0f} TFLOP/s; "
+        f"mfu_weighted {summ.get('mfu_weighted')}; launch-cost fit {fit} "
+        f"(planned DEFAULT_LAUNCH_COST_MPX 0.00086); epoch wall "
+        f"{on['summary']['epochs'][-1]['epoch_s']:.3f} s on, "
+        f"{off['summary']['epochs'][-1]['epoch_s']:.3f} s off (first calls "
+        f"included; the on run counts them); CLI wall {on['wall_s']:.2f} / "
+        f"{off['wall_s']:.2f} s")
+    med = {}
+    for shape in sorted({p[1] for p in on["periods"] + off["periods"]}):
+        got = [[ms for _, sh, g, ms in run["periods"] if sh == shape and g == "steady"]
+               for run in (on, off)]
+        med[shape] = [statistics.median(x) if x else float("nan") for x in got]
+        log(f"[obs] train {tag} steady-state step {shape} (reported, not "
+            f"gated; CUDA events at each step's start, first calls and the "
+            f"trace window's steps left out): median {med[shape][0]:.3f} ms "
+            f"on ({len(got[0])} steps) against {med[shape][1]:.3f} ms off "
+            f"({len(got[1])}); telemetry costs "
+            f"{med[shape][0] - med[shape][1]:+.3f} ms a step "
+            f"({(med[shape][0] - med[shape][1]) / med[shape][1]:+.2%})")
+    by = {g: [sum(ms for *_, gg, ms in run["periods"] if gg == g)
+              for run in (on, off)] for g in ("first", "window", "steady")}
+    log(f"[obs] train {tag} step periods on / off by group (ms, summed): "
+        + ", ".join(f"{g} {a:.1f} / {b:.1f} ({a - b:+.1f})"
+                    for g, (a, b) in by.items())
+        + "; every period (ordinal, group, ms) on "
+        + str([(k, g[0], round(ms, 1)) for k, _, g, ms in on["periods"]])
+        + " off " + str([(k, g[0], round(ms, 1)) for k, _, g, ms in off["periods"]]))
+    log(f"[obs] train {tag}: telemetry on = off bitwise ({len(a)} tensors: "
+        f"weights, running stats, momentum), launches {on['launches']} both; "
+        f"trace {OBS_TRACE[0]}:{OBS_TRACE[1]}: {tr['steps']} optimizer steps, "
+        f"{tr['bn']} bn_moments + {tr['bn_backward']} bn_moments_backward "
+        f"records of {tr['kernels']} kernels ({tr['bytes'] / 1e6:.1f} MB); "
+        f"launches without a record (the warm-up's) {tr['lost']} of "
+        f"{tr['launches']} over {tr['window_ms']} ms")
+    return {"mfu": big["mfu"], "fit": fit, "mean_s": big["mean_s"],
+            "step_ms": med}
+
+
+def obs_eval(root: Path, ckpt: Path, work: Path, bf16: bool) -> dict:
+    """The eval CLI on ``ckpt`` with the train window's flags, and off:
+    MAE and MSE equal within OBS_EVAL_RTOL; returns the context launches."""
+    from can_tpu_torch.cli import test as cli
+
+    tag = "bf16" if bf16 else "f32"
+    base = (["--data_root", str(root), "--checkpoint-dir", str(ckpt), "--syncBN"]
+            + (["--bf16"] if bf16 else []))
+    out, launches = {}, {}
+    for mode in ("on", "off"):
+        d = work / f"eval_{tag}_{mode}"
+        _reset_launches()  # the main path starts here
+        out[mode] = cli.evaluate_checkpoint(cli.parse_args(
+            base + (_tel_argv(d) if mode == "on" else [])))
+        launches[mode] = _launch_counts()  # ... and ends here
+    for k in ("mae", "mse"):
+        rel = abs(out["on"][k] - out["off"][k]) / abs(out["off"][k])
+        if rel > OBS_EVAL_RTOL:
+            fail(f"[obs] eval {tag}: {k} on {out['on'][k]!r} off "
+                 f"{out['off'][k]!r} (rel {rel:.2e} > {OBS_EVAL_RTOL})")
+    d = work / f"eval_{tag}_on"
+    events = [json.loads(x) for x in
+              (d / "tel" / "telemetry.host0.jsonl").read_text().splitlines()]
+    perf = [e["payload"] for e in events if e["kind"] == "perf.summary"]
+    rows = [r for r in perf[-1]["detail"] if r["name"] == "eval_step"] if perf else []
+    tr = trace_counts(d / "prof")
+    if launches["on"] != launches["off"] or not rows \
+            or launches["on"]["context"] != out["on"]["batches"] \
+            or tr["kernels"] == 0:
+        fail(f"[obs] eval {tag}: launches on {launches['on']} off "
+             f"{launches['off']} for {out['on']['batches']} batches, "
+             f"eval_step rows {rows}, trace kernels {tr['kernels']}")
+    log(f"[obs] eval {tag}: MAE {out['on']['mae']:.9g} MSE "
+        f"{out['on']['mse']:.9g} on = off (rtol {OBS_EVAL_RTOL}), "
+        f"context_fused {launches['on']['context']} launches each; ledger "
+        + ", ".join(f"{tuple(r['shape'])} MFU {r['mfu']} {r['roofline']}"
+                    for r in rows)
+        + f"; trace {tr['kernels']} kernel records")
+    return {k: launches["on"][k] + launches["off"][k] for k in launches["on"]}
+
+
+def phase_obs_train(work: Path) -> dict:
+    """The device side of telemetry (slice 12) on the train and eval CLIs;
+    returns the launches of every run."""
+    import shutil
+
+    t_phase = time.perf_counter()
+    work = work / "obs_train"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    root = obs_train_data(work)
+    total = {"bn": 0, "bn_backward": 0, "context": 0}
+    for bf16 in (False, True):
+        tag = "bf16" if bf16 else "f32"
+        on = obs_train_run(root, work, bf16, telemetry=True)
+        off = obs_train_run(root, work, bf16, telemetry=False)
+        check_obs_train(on, off, tag)
+        ev = obs_eval(root, on["dir"] / "ck", work, bf16)
+        for k in total:
+            total[k] += on["launches"][k] + off["launches"][k] + ev[k]
+    log(f"[obs] train/eval windows {time.perf_counter() - t_phase:.1f} s; "
+        f"launches {total}")
+    return total
+
+
 def _bn_mask(b: int, h: int, w: int, device) -> "torch.Tensor":
     """Bucket padding (bottom quarter, right third) and, for b > 1, one
     fill slot."""
@@ -2171,15 +2620,15 @@ def check_bn_sums(got, y, m, what: str) -> float:
     return max(float(e1.max()), float(e2.max()))
 
 
-def bn_bound(y, peaks: dict):
-    """Least time for the moment sums on these inputs: y and the mask read
-    once, (2C + 1) f32 written; 4 f32 operations per element of y (y m,
-    +, fma) on CUDA cores (bf16 is widened, so the f32 peak)."""
-    b, h, w, c = y.shape
-    nbytes = y.numel() * y.element_size() + b * h * w * 4 + (2 * c + 1) * 4
-    by_bytes = nbytes / peaks["bytes"] * 1e3
-    by_ops = 4 * y.numel() / peaks["f32"] * 1e3
-    return max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops else "operations"), nbytes
+def bn_bound(y, m, peaks: dict):
+    """Least time for the moment sums on these inputs, the kernel's work
+    as the cost ledger counts it (``cuda_bn.moment_sums_cost``: y and the
+    mask read once, (2C + 1) f32 written; 4 f32 operations per element of
+    y on CUDA cores, bf16 being widened): (ms, bound by, bytes)."""
+    from can_tpu_torch.ops import cuda_bn as cb
+
+    flops, nbytes = cb.moment_sums_cost(y, m)
+    return (*_bound(flops, nbytes, peaks["f32"], peaks), nbytes)
 
 
 class _Saved:
@@ -2189,16 +2638,15 @@ class _Saved:
         self.saved_tensors = tensors
 
 
-def bn_backward_bound(y, peaks: dict):
+def bn_backward_bound(y, m, peaks: dict):
     """Least time for the BN backward dy = m (g1 + 2 g2 y) on these
-    inputs: y and the mask read once, dy (y's shape and dtype) written
-    once; 3 f32 operations per element (2 g2 is per channel) on CUDA
-    cores."""
-    b, h, w, c = y.shape
-    nbytes = 2 * y.numel() * y.element_size() + b * h * w * 4 + 2 * c * 4
-    by_bytes = nbytes / peaks["bytes"] * 1e3
-    by_ops = 3 * y.numel() / peaks["f32"] * 1e3
-    return max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops else "operations"), nbytes
+    inputs (``cuda_bn.moment_sums_backward_cost``: y, the mask, g1 and g2
+    read once, dy written once; 3 f32 operations per element):
+    (ms, bound by, bytes)."""
+    from can_tpu_torch.ops import cuda_bn as cb
+
+    flops, nbytes = cb.moment_sums_backward_cost(y, m)
+    return (*_bound(flops, nbytes, peaks["f32"], peaks), nbytes)
 
 
 def check_bn_backward(got, want, y, name: str, what: str) -> float:
@@ -2276,8 +2724,8 @@ def bn_time(y, m, g1, g2, peaks: dict, what: str) -> dict:
     bk, b_dev = device_kernels(bwd)
     b_call = time_ms(bwd)
     f_host, b_host = host_us(fwd), host_us(bwd)
-    f_bound, f_by, f_bytes = bn_bound(y, peaks)
-    b_bound, b_by, b_bytes = bn_backward_bound(y, peaks)
+    f_bound, f_by, f_bytes = bn_bound(y, m, peaks)
+    b_bound, b_by, b_bytes = bn_backward_bound(y, m, peaks)
     log(f"[bn] {what} forward: device {f_dev:.4f} ms "
         f"({', '.join(f'{n} x{k:g}' for n, _, k in fk)}), call "
         f"{f_call:.4f} ms, bound {f_bound:.4f} ms ({f_by}: "
@@ -4740,6 +5188,7 @@ def main(argv) -> int:
                 random_state_dict(SEED, he=True).items()}, pth)
     if obs_only:
         phase_obs(pth, work)
+        phase_obs_train(work)
         log(f"[smoke] --obs-only done in {time.perf_counter() - t_start:.1f}s")
         log(card)
         return 0
@@ -4782,7 +5231,8 @@ def main(argv) -> int:
     # each phase resets and reads the counts around each path it drives
     paths = {"fleet": phase_fleet(pth, card), "obs": phase_obs(pth, work),
              "determinism": phase_determinism(work),
-             "train": phase_train(work), "remat": phase_remat(work),
+             "train": phase_train(work), "obs_train": phase_obs_train(work),
+             "remat": phase_remat(work),
              "s2d": phase_s2d(work), "vgg16": phase_vgg16(work),
              "slice5": phase_slice5(work), "legacy": phase_legacy(work),
              "prepare": phase_prepare(work), "golden": phase_golden(work),

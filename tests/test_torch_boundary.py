@@ -57,7 +57,10 @@ def test_port_modules_are_found():
               # the obs core
               "can_tpu_torch.obs.bus", "can_tpu_torch.obs.collector",
               "can_tpu_torch.obs.incidents", "can_tpu_torch.obs.exporter",
-              "can_tpu_torch.cli.collect"):
+              "can_tpu_torch.cli.collect",
+              # the device side of obs
+              "can_tpu_torch.obs.costs", "can_tpu_torch.obs.trace",
+              "can_tpu_torch.utils.profiling"):
         assert m in mods
     assert (PKG / "csrc" / "context_fused.cu").is_file()
 
@@ -124,12 +127,16 @@ def test_resolve_device_cpu_only_when_asked():
 def test_no_tpu_constant_in_the_port():
     """The planner's memory cap and launch price are the card's: none of
     the JAX package's TPU constants (1100/2200 B/px, 42 Mpx/s, its
-    device-kind tables) is in the port."""
+    device-kind tables and their TPU peak rates) is in the port.  The
+    cost ledger's ``DevicePeaks`` exists in the port with the H100's rows
+    (``cli/common.py``), so the TPU rows' own numbers are what is looked
+    for."""
     files = sorted(PKG.rglob("*.py"))
     for f in files:
         src = f.read_text()
         for pat in ("1100.0", "2200.0", "42.0", "_HBM_BY_DEVICE_KIND",
-                    "_PEAK_BY_DEVICE_KIND", "DevicePeaks"):
+                    "_PEAK_BY_DEVICE_KIND", "197e12", "459e12", "918e12",
+                    "275e12", "819e9", "2765e9", "1640e9"):
             assert pat not in src, (str(f.relative_to(ROOT)), pat)
 
 

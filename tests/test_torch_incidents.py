@@ -12,8 +12,8 @@ gauges, manifests — minus the process id, the bundle path, the memory
 snapshot (a device read) and the thread stacks; ``incident.bundle``
 events minus their path.  Rate limiting, retention, the signal hook and
 the bundle readers behave as the reference's.  ``build_telemetry`` arms
-the same collaborators from the same flags (the port's ``ledger`` stays
-None: the cost ledger is a later slice), and ``validate_incident_args``
+the same collaborators from the same flags (the cost ledger and the span
+tracer together, under the same rule), and ``validate_incident_args``
 refuses bad flags with the reference's messages.  ``tools/trace_export.py``
 reads the port's bundle ring.
 """
@@ -226,7 +226,7 @@ def _build(pkg_name, args, **kw):
         from can_tpu.cli.train import build_telemetry
         return build_telemetry(args, host_id=0, trace_window=None, **kw)
     from can_tpu_torch.cli.train import build_telemetry
-    return build_telemetry(args, host_id=0, **kw)
+    return build_telemetry(args, host_id=0, trace_window=None, device="cpu", **kw)
 
 
 def _shape(tel, hb, exporter):
@@ -254,10 +254,7 @@ def test_build_telemetry_arms_the_references_stack(tmp_path, flags, monkeypatch)
         try:
             assert signal.getsignal(signal.SIGTERM) == prev
             shape = _shape(tel, hb, exporter)
-            if name == "port":
-                assert tel.ledger is None  # the cost ledger: a later slice
-            else:
-                assert (tel.ledger is not None) == shape["spans"]
+            assert (tel.ledger is not None) == shape["spans"]
         finally:
             pkg.shutdown_telemetry(tel, heartbeat=hb, exporter=exporter)
         run = None

@@ -228,7 +228,9 @@ def test_prepare_image_matches_cv2_path(hw):
 
 def test_step_timer_reservoir():
     assert StepTimer().percentiles()["n"] == 0
-    t = StepTimer(reservoir=3)
+    # skip_first=0: the serving reservoir's setting (the default skips two
+    # samples, as the JAX package's StepTimer does)
+    t = StepTimer(skip_first=0, reservoir=3)
     for dt in (9.0, 1.0, 2.0, 3.0):  # the oldest sample falls out
         t.record(dt)
     p = t.percentiles()

@@ -14,7 +14,10 @@ metric names and label sets of ``/metrics`` (the bus gauges and the
 ``/stats`` source) and the counts — f32, rel 1e-4 (the serve tolerance:
 both engines sum the same f32 density map in different orders).
 ``tools/telemetry_report.py`` and ``tools/slo_report.py`` read the port's
-JSONL.
+JSONL.  The cost ledger rides the same flags: ``perf.summary`` at the JAX
+service's points, each ``compile`` event with its flops and bytes, the
+``can_tpu_mfu_*`` gauges on ``/metrics``; ``perf_summary_every`` sets the
+period between them.
 
 The port alone, on a two-replica fleet of CPU slots: a seeded
 ``replica_crash`` writes exactly one ``fleet_quarantine`` bundle (the
@@ -90,14 +93,14 @@ def _serve(pkg, pth, tmp):
         from can_tpu.cli.train import build_telemetry, validate_incident_args
         from can_tpu.obs import shutdown_telemetry as shutdown
         from can_tpu.serve import prepare_image as prep
-        kw = {"trace_window": None}
     else:
         from can_tpu_torch.cli import serve as cli
         from can_tpu_torch.cli.train import build_telemetry, validate_incident_args
-        shutdown, prep, kw = shutdown_telemetry, prepare_image, {}
+        shutdown, prep = shutdown_telemetry, prepare_image
     args = cli.parse_args(_argv(pth, tmp))
     validate_incident_args(args)
-    tel, hb, exporter = build_telemetry(args, host_id=0, install_signals=False, **kw)
+    tel, hb, exporter = build_telemetry(args, host_id=0, install_signals=False,
+                                        trace_window=None)
     try:
         service = cli.build_service(args, telemetry=tel)
         exporter.add_stats_source("serve", service.stats)
@@ -109,12 +112,16 @@ def _serve(pkg, pth, tmp):
                     f"http://127.0.0.1:{exporter.port}/metrics", timeout=10) as r:
                 metrics = r.read().decode()
             stats = service.stats()
+        # after the close: its perf.summary carries the traffic's timings
+        with urllib.request.urlopen(
+                f"http://127.0.0.1:{exporter.port}/metrics", timeout=10) as r:
+            closed_metrics = r.read().decode()
     finally:
         shutdown(tel, heartbeat=hb, exporter=exporter)
     with open(tmp / "tel" / "telemetry.host0.jsonl") as f:
         events = [json.loads(x) for x in f]
     return {"counts": np.array(counts), "events": events, "metrics": metrics,
-            "stats": stats, "tel": tmp / "tel"}
+            "closed_metrics": closed_metrics, "stats": stats, "tel": tmp / "tel"}
 
 
 @pytest.fixture(scope="module")
@@ -124,15 +131,12 @@ def served(he_pth, tmp_path_factory):
 
 
 # kinds whose count follows the wall clock (heartbeats; slo.burn, one per
-# eval interval of the bus clock), and what the reference's cost ledger
-# adds (its summary kind, its costs on each compile event)
+# eval interval of the bus clock)
 CLOCKED = ("heartbeat", "slo.burn")
-LEDGER_KINDS = ("perf.summary",)
-LEDGER_KEYS = {"flops", "bytes_accessed"}
 
 
 def _kinds(events):
-    c = Counter(e["kind"] for e in events if e["kind"] not in LEDGER_KINDS)
+    c = Counter(e["kind"] for e in events)
     for k in CLOCKED:
         c[k] = min(c[k], 1)
     return c
@@ -142,9 +146,7 @@ def _keys(events):
     out = {}
     for e in events:
         k = e["kind"] if e["kind"] != "trace.span" else f"span:{e['payload']['name']}"
-        out.setdefault(k, set()).update(set(e["payload"]) - LEDGER_KEYS)
-    for k in LEDGER_KINDS:
-        out.pop(k, None)
+        out.setdefault(k, set()).update(set(e["payload"]))
     return {k: sorted(v) for k, v in out.items()}
 
 
@@ -184,6 +186,60 @@ def test_event_kinds_counts_and_payload_keys_equal(served):
     assert not [e for e in port[warm:] if e["kind"] == "compile"]
 
 
+def test_perf_summary_points_and_compile_costs(served):
+    """The cost ledger on the serving path: ``perf.summary`` at the JAX
+    service's points (warmup, close; the script's 8 batches stay under
+    the 32-batch period), ``serve_predict`` rows, and every ``compile``
+    event carrying the first call's flops and bytes."""
+    got = {}
+    for pkg in ("jax", "port"):
+        events = served[pkg]["events"]
+        perf = [e["payload"] for e in events if e["kind"] == "perf.summary"]
+        got[pkg] = [p["phase"] for p in perf]
+        compiles = [e["payload"] for e in events if e["kind"] == "compile"]
+        assert compiles and all(c["flops"] > 0 and c["bytes_accessed"] > 0
+                                for c in compiles)
+        assert {r["name"] for r in perf[-1]["detail"]} == {"serve_predict"}
+        assert perf[-1]["perf_programs"] == len(compiles)
+        assert perf[-1]["mfu_weighted"] is not None
+    assert got["port"] == got["jax"] == ["serve_warmup", "serve_close"]
+
+
+def test_perf_summary_period(he_sd, tmp_path):
+    """``perf_summary_every=3``: one summary per 3 completed batches
+    between the warmup's and the close's; steady-state batches feed the
+    ledger's fenced timings (first calls do not)."""
+    from can_tpu_torch.cli.common import local_device_peaks
+    from can_tpu_torch.obs import ProgramCostLedger, Telemetry
+    from can_tpu_torch.serve import ServeEngine
+
+    events = []
+
+    class Sink:
+        def emit(self, e):
+            events.append(e)
+
+        def close(self):
+            pass
+
+    tel = Telemetry([Sink()])
+    tel.ledger = ProgramCostLedger(peaks=local_device_peaks("cpu"))
+    engine = ServeEngine(he_sd, device="cpu", telemetry=tel)
+    svc = CountService(engine, max_batch=2, max_wait_ms=1.0,
+                       bucket_ladder=((64,), (64,)), perf_summary_every=3,
+                       telemetry=tel)
+    svc.warmup([(64, 64)])
+    img = prepare_image(_images()[0])
+    with svc:
+        for _ in range(7):
+            svc.predict(img, timeout=120)
+    phases = [e["payload"]["phase"] for e in events if e["kind"] == "perf.summary"]
+    assert phases == ["serve_warmup", "serve", "serve", "serve_close"]
+    rows = {tuple(r["shape"]): r for r in tel.ledger.rows()}
+    assert rows[(1, 64, 64, 3)]["launches"] == 7
+    assert rows[(1, 64, 64, 3)]["timing_reliable"]
+
+
 def test_span_trees_equal(served):
     trees = _span_trees(served["port"]["events"])
     assert trees == _span_trees(served["jax"]["events"])
@@ -205,15 +261,19 @@ def _metric_shapes(text):
 
 
 def test_metrics_names_and_labels_equal(served):
-    """The scrape's metric names and label sets are the reference's, but
-    the cost ledger's (``can_tpu_mfu*``, ``can_tpu_roofline*``,
-    ``can_tpu_peak_*``, ...): the port arms no ledger until that slice."""
-    ledger = re.compile(r"^can_tpu_(mfu|roofline|perf|flops|program|peak_)")
+    """The scrape's metric names and label sets are the reference's, the
+    cost ledger's (``can_tpu_mfu*``, ``can_tpu_roofline*``,
+    ``can_tpu_peak_*``, ...) included."""
     port = _metric_shapes(served["port"]["metrics"])
-    ref = {k: v for k, v in _metric_shapes(served["jax"]["metrics"]).items()
-           if not ledger.match(k)}
-    assert port == ref
+    assert port == _metric_shapes(served["jax"]["metrics"])
     assert "can_tpu_serve_completed_total" in port
+    # scraped mid-traffic: the warmup's summary (rows, roofline, peaks);
+    # MFU joins at the close's, once traffic has timed the programs
+    assert {"can_tpu_roofline_compute_bound", "can_tpu_perf_programs",
+            "can_tpu_peak_flops"} <= set(port)
+    closed = _metric_shapes(served["port"]["closed_metrics"])
+    assert closed == _metric_shapes(served["jax"]["closed_metrics"])
+    assert {"can_tpu_mfu_weighted", "can_tpu_mfu_best"} <= set(closed)
     line = [x for x in served["port"]["metrics"].splitlines()
             if x.startswith("can_tpu_serve_completed_total ")]
     assert line == [f"can_tpu_serve_completed_total {N_REQ}"]
@@ -290,12 +350,39 @@ def test_bad_spec_and_busy_metrics_port_fail_before_the_weights(he_pth, tmp_path
         busy.close()
 
 
+@pytest.mark.parametrize("flags, compute", [
+    ((), "f32"), (("--serve-dtype", "bf16"), "bf16"),
+    (("--serve-dtype", "int8"), "f32"), (("--bf16",), "bf16")])
+def test_serve_cli_prices_mfu_at_its_compute_dtype(he_pth, tmp_path, monkeypatch,
+                                                    flags, compute):
+    """The serve CLI's ledger is armed at the forward's compute dtype: a
+    bf16 service priced at the f32 peak would read MFU 15x high on the
+    H100 (989 against 67 TFLOP/s)."""
+    from can_tpu_torch.cli import serve as tcli
+
+    seen = {}
+
+    class Armed(Exception):
+        pass
+
+    def capture(args, telemetry=None):
+        seen["ledger"] = telemetry.ledger
+        raise Armed
+
+    monkeypatch.setattr(tcli, "build_service", capture)
+    with pytest.raises(Armed):
+        tcli.main(["--torch-pth", he_pth, "--platform", "cpu", "--port", "0",
+                   "--telemetry-dir", str(tmp_path / "tel"), *flags])
+    assert seen["ledger"].compute == compute
+
+
 # -- the fleet (port only) ---------------------------------------------------------
 def _tel_args(tmp, **over):
     ns = argparse.Namespace(telemetry_dir=str(tmp / "tel"), telemetry_heartbeat_s=0.05,
                             collector_push="", metrics_port=None,
                             metrics_host="127.0.0.1", bf16=False,
-                            incident_dir=str(tmp / "inc"), slo_spec="")
+                            incident_dir=str(tmp / "inc"), slo_spec="",
+                            platform="cpu")
     for k, v in over.items():
         setattr(ns, k, v)
     return ns
@@ -324,7 +411,7 @@ def test_fleet_crash_writes_one_quarantine_bundle(he_sd, tmp_path, monkeypatch):
     monkeypatch.setattr(faults, "_CACHED", None)
     monkeypatch.setattr(faults, "_CACHED_SPEC", None)
     tel, hb, exporter = build_telemetry(_tel_args(tmp_path), host_id=0,
-                                        install_signals=False)
+                                        install_signals=False, trace_window=None)
     try:
         fleet, svc = _fleet(tmp_path, tel, he_sd)
         img = prepare_image(_images()[0])
@@ -351,7 +438,8 @@ def test_fleet_rollout_spans_and_request_trees(he_sd, tmp_path):
     from can_tpu_torch.cli.train import build_telemetry
 
     tel, hb, exporter = build_telemetry(_tel_args(tmp_path, incident_dir=""),
-                                        host_id=0, install_signals=False)
+                                        host_id=0, install_signals=False,
+                                        trace_window=None)
     try:
         fleet, svc = _fleet(tmp_path, tel, he_sd)
         img = prepare_image(_images()[1])
@@ -385,7 +473,8 @@ def test_slo_burn_reaches_the_gauges_and_scales_the_fleet(he_sd, tmp_path):
         "burn_alert": 2.0, "min_samples": 2}]}))
     args = _tel_args(tmp_path, slo_spec=str(spec))
     validate_incident_args(args)
-    tel, hb, exporter = build_telemetry(args, host_id=0, install_signals=False)
+    tel, hb, exporter = build_telemetry(args, host_id=0, install_signals=False,
+                                        trace_window=None)
     try:
         fleet, svc = _fleet(tmp_path, tel, he_sd)
         img = prepare_image(_images()[2])
