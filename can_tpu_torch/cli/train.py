@@ -41,7 +41,22 @@ it.  ``--sp K`` splits each image's height over K processes
 shards, the ranks of a replica load the same images and keep their rows
 of them, bucket H is padded to multiples of 8*K and at least 16*K, the
 step sums its gradients over the world (no DDP) and the lr scales with
-dp.  Elastic training comes with a later slice (ROADMAP Queue 1 item 6).
+dp.
+
+``--elastic-dir D`` arms elastic shrink-and-continue training
+(``parallel/elastic.py``): every ``--elastic-check-every`` steps the ranks
+agree on preemption notices (a SIGTERM, a ``leave`` or ``dead`` file in
+D); on one, every rank saves the shrink checkpoint under
+``<checkpoint-dir>/elastic/``, the leavers exit 143 and the survivors form
+a new world, rebuild DDP, the optimizer, the lr schedule and the batcher
+for the new dp, restore the shrink checkpoint and train the interrupted
+epoch's remaining items (one ``elastic.transition`` event).  A cold
+restart with ``--init_checkpoint`` on that directory resumes from the same
+manifest by the same code, to the same weights bit for bit.  Launch
+elastic runs one process per rank with the rendezvous variables set per
+process, not under ``torchrun`` (its agent stops every worker when the
+leaver exits non-zero).  ``--elastic-dir`` with ``--sp > 1`` is refused
+(ROADMAP Queue 1 item 6b).
 
 Telemetry (``obs/``) is off unless asked for, with the JAX CLI's flags:
 ``--telemetry-dir`` writes ``telemetry.host{rank}.jsonl`` (one per
@@ -204,6 +219,22 @@ def parse_args(argv=None):
                         "epoch always evaluates)")
     p.add_argument("--max-steps-per-epoch", type=int, default=0,
                    help="truncate epochs (smoke runs); 0 = full epoch")
+    p.add_argument("--elastic-dir", type=str, default="",
+                   help="arm elastic shrink-and-continue training "
+                        "(parallel/elastic.py): a shared signal directory "
+                        "polled for preemption leave/dead files, written by a "
+                        "preempted rank's SIGTERM hook or tools/run_monitor.py "
+                        "--emit-signal.  On an agreed signal every rank "
+                        "checkpoints at a bounded barrier, the leavers exit "
+                        "143, the survivors re-form at the shrunk world, the "
+                        "planner replans the interrupted epoch's remaining "
+                        "items, lr and global batch rescale with dp, and "
+                        "training continues (one elastic.transition event).  "
+                        "Default off: no hook, no polling")
+    p.add_argument("--elastic-check-every", type=int, default=4,
+                   help="steps between elastic agreement polls (each is one "
+                        "small host allgather at world > 1; every epoch's "
+                        "first step polls too)")
     p.add_argument("--platform", type=str, default="default",
                    choices=list(PLATFORMS),
                    help="default/gpu: the CUDA device cuda:LOCAL_RANK, NCCL "
@@ -311,6 +342,13 @@ def validate(args):
     if args.eval_interval < 1:
         raise SystemExit("--eval-interval must be >= 1 (the final epoch "
                          "always evaluates)")
+    if args.elastic_check_every < 1:
+        raise SystemExit("--elastic-check-every must be >= 1")
+    if args.elastic_dir and args.sp > 1:
+        raise SystemExit("--elastic-dir with --sp > 1 is not supported yet "
+                         "(ROADMAP Queue 1 item 6b): one process holds one "
+                         "GPU, so a shrink need not leave a multiple of --sp "
+                         "ranks")
     if args.batch_size < 1 or args.epochs < 1:
         raise SystemExit("--batch-size and --epochs must be >= 1")
     if args.sp < 1:
@@ -337,8 +375,16 @@ def validate(args):
     if args.vgg16_npz and not os.path.isfile(args.vgg16_npz):
         raise SystemExit(f"no such VGG-16 file: {args.vgg16_npz}")
     if args.init_checkpoint:
+        from can_tpu_torch.parallel.elastic import load_manifest
+
         saved = load_run_config(args.init_checkpoint)
-        if saved is not None and has_checkpoint(args.init_checkpoint):
+        # a preemption before the first epoch's save leaves no epoch
+        # checkpoint but a manifest and a shrink checkpoint, whose schedule
+        # the guard protects as much (world_size is checked after the
+        # world exists, with the elastic allowance)
+        resumable = (has_checkpoint(args.init_checkpoint)
+                     or load_manifest(args.init_checkpoint) is not None)
+        if saved is not None and resumable:
             saved = {k: v for k, v in saved.items() if k != "world_size"}
             try:
                 drifted = check_resume_config(saved, run_config(args),
@@ -504,12 +550,23 @@ def build_telemetry(args, *, host_id: int, trace_window, device=None,
 def train(args) -> dict:
     """The whole run; returns ``{"steps", "schedule_steps" (the planned
     schedule's steps over the epochs run), "eval_batches", "epochs" (one
-    dict per epoch), "best_mae", "checkpoint_dir", "world_size"}``.
+    dict per epoch), "best_mae", "checkpoint_dir", "world_size",
+    "generations", "topology" (the last generation's), "timeline" (wall
+    times of the elastic stages this process saw), "exit_code"}``.
     Raises SystemExit on bad arguments and without the asked-for device.
     Joins the process group a launcher describes (``init_runtime``) and
-    leaves it at the end, unless the caller formed it."""
-    from can_tpu_torch.parallel import init_runtime, runtime_active, shutdown_runtime
+    leaves it at the end, unless the caller formed it and no elastic
+    transition replaced it."""
+    import time
 
+    from can_tpu_torch.parallel import (
+        generation,
+        init_runtime,
+        runtime_active,
+        shutdown_runtime,
+    )
+
+    t_start = time.time()
     roots = validate(args)
     trace_window = validate_trace_args(args)
     validate_incident_args(args)
@@ -518,23 +575,99 @@ def train(args) -> dict:
         topo = init_runtime(platform=args.platform)
     except NoCudaDeviceError as e:
         raise SystemExit(f"[train] {e}") from None
+    gen0 = generation()
+    supervisor = None
+    if args.elastic_dir:
+        from can_tpu_torch.parallel.elastic import ElasticSupervisor
+
+        # installed before the incident manager's SIGTERM hook (built with
+        # the telemetry): the manager dumps its bundle first and chains
+        # here, which sets the leaving flag and returns
+        supervisor = ElasticSupervisor(args.elastic_dir,
+                                       check_every=args.elastic_check_every)
+        supervisor.install_signal_hook()
     try:
-        return _train(args, roots, topo, trace_window)
+        return _train(args, roots, topo, trace_window, supervisor, t_start)
     finally:
-        if owned:
+        if supervisor is not None:
+            supervisor.close()
+        if owned or generation() != gen0:
             shutdown_runtime()
 
 
-def _train(args, roots, topo, trace_window=None) -> dict:
+def _train(args, roots, topo, trace_window, supervisor, t_start: float) -> dict:
+    """The generation loop: each iteration is one runtime generation, built
+    at the current world; an agreed elastic shrink ends it, and the
+    survivors re-form and loop.  Datasets, the item cache, the logger and
+    the telemetry stack are built once and survive a transition; a run
+    without ``--elastic-dir`` runs one generation."""
+    import gc
+    import time
+
+    from can_tpu_torch import obs
+
+    ctx = {"datasets": None, "item_cache": None, "launch_cost_px": None,
+           "telemetry": None, "heartbeat": None, "exporter": None,
+           "logger": None, "pending_manifest": None, "best": None,
+           "generations": 0,
+           "timeline": {"start": t_start}}
+    summary = {"steps": 0, "schedule_steps": 0, "eval_batches": 0,
+               "epochs": [], "checkpoint_dir": os.path.abspath(args.checkpoint_dir)}
+    try:
+        while True:
+            summary["topology"] = topo
+            outcome, detail = _generation(args, roots, topo, trace_window,
+                                          supervisor, ctx, summary)
+            if outcome != "reform":
+                break
+            # every object of the dying generation (DDP and its group, the
+            # mesh's groups, the model) is gone with _generation's frame
+            gc.collect()
+            topo = supervisor.reform(detail)
+            ctx["pending_manifest"] = detail
+    finally:
+        if ctx["logger"] is not None:
+            ctx["logger"].finish()
+        if ctx["telemetry"] is not None:
+            # one teardown order for clean exit, abort, leave and SIGTERM
+            obs.shutdown_telemetry(ctx["telemetry"], heartbeat=ctx["heartbeat"],
+                                   exporter=ctx["exporter"])
+    summary["generations"] = ctx["generations"]
+    summary["timeline"] = dict(ctx["timeline"], **(supervisor.timeline
+                                                   if supervisor else {}))
+    summary["best_mae"] = ctx["best"]
+    summary["exit_code"] = detail if outcome == "leave" else 0
+    if outcome == "done":
+        from can_tpu_torch.parallel import is_main_process
+
+        if ctx["item_cache"] is not None and is_main_process():
+            print(f"[data] item cache: {ctx['item_cache'].stats()}")
+        if is_main_process():
+            best = ctx["best"]
+            print(f"[done] best MAE {best:.3f}" if best is not None else "[done]")
+    return summary
+
+
+def _generation(args, roots, topo, trace_window, supervisor, ctx, summary):
+    """One runtime generation: build the world, resume (from a pending or
+    live elastic manifest, else the latest epoch), train.  Returns
+    ``("done", None)``, ``("reform", manifest)`` or ``("leave", rc)``."""
+    import time
+
+    from can_tpu_torch import obs
     from can_tpu_torch.data import CrowdDataset, ItemCache, ShardedBatcher, StaleStoreError
     from can_tpu_torch.data.prefetch import DevicePut
     from can_tpu_torch.models import CANNet, load_vgg16_frontend
     from can_tpu_torch.ops.bn_moments import make_bn_ops
     from can_tpu_torch.parallel import (
+        generation,
         is_main_process,
         make_dp_eval_step,
         make_dp_train_step,
+        process_count,
+        process_index,
     )
+    from can_tpu_torch.parallel import elastic as el
     from can_tpu_torch.parallel.data_parallel import spatial_rows
     from can_tpu_torch.train import (
         create_train_state,
@@ -552,8 +685,11 @@ def _train(args, roots, topo, trace_window=None) -> dict:
         save_run_config,
     )
     from can_tpu_torch.utils.logging import MetricLogger
+    from can_tpu_torch.utils.profiling import profile_trace
 
     train_img, train_gt, test_img, test_gt = roots
+    ctx["generations"] += 1
+    first = ctx["generations"] == 1
     device = torch.device(topo["device"])
     main = is_main_process()
     # per-step instrumentation (known before the steps are built: they
@@ -570,35 +706,46 @@ def _train(args, roots, topo, trace_window=None) -> dict:
         raise SystemExit(f"[train] {e}") from None
     sp = mesh.sp
     shards = dp * sp  # cards per launch
+    summary["world_size"] = dp
     pad_multiple, min_pad, min_bucket_h = resolve_sp_padding(args.pad_multiple, sp)
     if main:
-        print(f"[start] {datetime.datetime.now():%Y-%m-%d %H:%M:%S} on {device}"
-              + (f" ({torch.cuda.get_device_name(device)})"
-                 if device.type == "cuda" else ""))
-        if topo["backend"] is not None:
+        if first:
+            print(f"[start] {datetime.datetime.now():%Y-%m-%d %H:%M:%S} on {device}"
+                  + (f" ({torch.cuda.get_device_name(device)})"
+                     if device.type == "cuda" else ""))
+        if topo["backend"] is not None or not first:
             print(f"[runtime] {topo}")
 
-    item_cache = (ItemCache(int(args.item_cache_mb * 1e6))
-                  if args.item_cache_mb > 0 else None)
-    try:
-        train_ds, test_ds = [
-            CrowdDataset(img, gt, phase=split, u8_output=args.u8_input,
-                         prepared=split_prepared_spec(args.prepared_root, split),
-                         item_cache=item_cache)
-            for split, img, gt in (("train", train_img, train_gt),
-                                   ("test", test_img, test_gt))]
-    except StaleStoreError as e:
-        raise SystemExit(f"--prepared-root {args.prepared_root}: {e}") from None
-    if main:
-        print("[data] prepared store: " + " ".join(
-            f"{split}={'on' if d.prepared_note['active'] else 'off (' + str(d.prepared_note['reason']) + ')'}"
-            for split, d in (("train", train_ds), ("test", test_ds))))
+    if ctx["datasets"] is None:
+        # host-side decode, independent of the world: built once
+        item_cache = (ItemCache(int(args.item_cache_mb * 1e6))
+                      if args.item_cache_mb > 0 else None)
+        try:
+            ctx["datasets"] = [
+                CrowdDataset(img, gt, phase=split, u8_output=args.u8_input,
+                             prepared=split_prepared_spec(args.prepared_root, split),
+                             item_cache=item_cache)
+                for split, img, gt in (("train", train_img, train_gt),
+                                       ("test", test_img, test_gt))]
+        except StaleStoreError as e:
+            raise SystemExit(f"--prepared-root {args.prepared_root}: {e}") from None
+        ctx["item_cache"] = item_cache
+        if main:
+            print("[data] prepared store: " + " ".join(
+                f"{split}={'on' if d.prepared_note['active'] else 'off (' + str(d.prepared_note['reason']) + ')'}"
+                for split, d in zip(("train", "test"), ctx["datasets"])))
+    train_ds, test_ds = ctx["datasets"]
+    item_cache = ctx["item_cache"]
     num_workers = resolve_num_workers(args.num_workers)
     if sp > 1 and main and pad_multiple != "auto":
         print(f"[data] sp={sp}: padding H,W to multiples of {pad_multiple}")
+    if ctx["launch_cost_px"] is None:
+        ctx["launch_cost_px"] = resolve_launch_cost_px(args.launch_cost_mpx,
+                                                       device, announce=main)
     # every launch splits evenly across the dp replicas, each replica's
     # ranks loading the same slice (the replica index d of dp); every
-    # input of the plan below is agreed across processes
+    # input of the plan below is agreed across processes.  The quantum is
+    # this generation's: after a shrink the planner replans under the new
     common = dict(seed=args.seed, pad_multiple=pad_multiple,
                   min_pad_multiple=min_pad, min_bucket_h=min_bucket_h,
                   max_buckets=args.max_buckets, num_workers=num_workers,
@@ -606,8 +753,7 @@ def _train(args, roots, topo, trace_window=None) -> dict:
                   process_index=mesh.d, process_count=dp,
                   batch_quantum=dp,
                   remnant_sizes=not args.no_remnant_batches,
-                  launch_cost_px=resolve_launch_cost_px(args.launch_cost_mpx,
-                                                        device, announce=main))
+                  launch_cost_px=ctx["launch_cost_px"])
     # the memory cap per launch: cells whose full batch would not fit the
     # card run at smaller menu sizes (remnant mode only, as in JAX); it
     # counts on remat, which the policy turns on where it is needed,
@@ -619,7 +765,7 @@ def _train(args, roots, topo, trace_window=None) -> dict:
                                   remat=args.remat != "off", shards=shards))
     remat_policy = make_remat_policy(args.remat, global_batch=host_batch * dp,
                                      bf16=args.bf16, hbm_bytes=hbm,
-                                     batch_norm=args.syncBN, announce=main,
+                                     batch_norm=args.syncBN, announce=main and first,
                                      shards=shards)
     train_batcher = ShardedBatcher(train_ds, host_batch, shuffle=True,
                                    max_launch_px=cap, **common)
@@ -639,7 +785,7 @@ def _train(args, roots, topo, trace_window=None) -> dict:
                    s2d_stem=args.s2d_stem)
     if args.vgg16_npz:
         load_vgg16_frontend(model, args.vgg16_npz)
-        if main:
+        if main and first:
             print(f"[init] loaded the pretrained VGG-16 frontend from "
                   f"{args.vgg16_npz}")
     if args.init_torch_pth:
@@ -655,7 +801,7 @@ def _train(args, roots, topo, trace_window=None) -> dict:
                 f"{'BN' if is_batch_norm_layout(sd) else 'plain'} model; "
                 f"{'drop' if args.syncBN else 'add'} --syncBN")
         model.load_state_dict(sd, strict=True)
-        if main:
+        if main and first:
             print(f"[init] warm-started parameters from {args.init_torch_pth}")
     model = model.to(memory_format=torch.channels_last)
     bn_ops = make_bn_ops(args.bn_impl) if args.syncBN else None
@@ -664,38 +810,86 @@ def _train(args, roots, topo, trace_window=None) -> dict:
               + (f", synced across {shards} processes" if shards > 1 else ""))
 
     steps_per_epoch = train_batcher.batches_per_epoch(0)
-    # linear lr scaling with the world: DDP averages the gradients
+    # linear lr scaling with the world: DDP averages the gradients.  After
+    # a shrink this is the schedule at dp': the elastic lr rescaling
     schedule = make_lr_schedule(args.lr, world_size=dp,
                                 total_steps=args.epochs * steps_per_epoch,
                                 lrf=args.lrf)
     state = create_train_state(model, schedule)
     ckpt = CheckpointManager(args.checkpoint_dir)
-    start_epoch, best = 0, None
-    if args.init_checkpoint:
-        # a world size other than the checkpoint's changes the schedule
-        saved = load_run_config(args.init_checkpoint)
-        if (saved is not None and "world_size" in saved
-                and has_checkpoint(args.init_checkpoint)):
-            try:
-                check_resume_config({"world_size": saved["world_size"]},
-                                    {"world_size": dp},
-                                    allow=args.allow_config_change)
-            except ConfigDriftError as e:
-                raise SystemExit(f"{e}: the checkpoint trained at another "
-                                 f"world size (pass --allow-config-change to "
-                                 f"resume on this one)") from None
+
+    # -- resume: the shrink this process just took part in, else (first
+    # generation only) a live manifest in --init_checkpoint, else the
+    # latest epoch
+    manifest = manifest_dir = resumed_from = None
+    start_epoch, best, include = 0, ctx["best"], None
+    if ctx["pending_manifest"] is not None:
+        manifest, ctx["pending_manifest"] = ctx["pending_manifest"], None
+        manifest_dir, resumed_from = args.checkpoint_dir, "in_process"
+    elif first and args.init_checkpoint:
         probe = CheckpointManager(args.init_checkpoint)
         latest = probe.latest_epoch()
-        if latest is None:
-            if main:
-                print(f"[resume] no checkpoint in {args.init_checkpoint}; "
-                      f"cold start")
+        live = el.load_manifest(args.init_checkpoint)
+        saved = load_run_config(args.init_checkpoint)
+        if el.manifest_is_live(live, latest):
+            manifest, manifest_dir = live, args.init_checkpoint
+            resumed_from, best = "cold_restart", probe.best_metric()
+            if saved is not None and "world_size" in saved:
+                # the live manifest permits a world-only change
+                drifted = check_resume_config(
+                    {"world_size": saved["world_size"]}, {"world_size": dp},
+                    allow=args.allow_config_change, allow_elastic=True)
+                if drifted and main:
+                    print(f"[elastic] world drift permitted by the live "
+                          f"transition manifest: world_size "
+                          f"{saved['world_size']} -> {dp}")
         else:
-            probe.restore(state, epoch=latest)
-            start_epoch, best = latest + 1, probe.best_metric()
-            if main:
-                print(f"[resume] epoch {latest} from {args.init_checkpoint} "
-                      f"(step {state.step}, best MAE {best:.3f})")
+            # a world size other than the checkpoint's changes the schedule
+            if (saved is not None and "world_size" in saved
+                    and has_checkpoint(args.init_checkpoint)):
+                try:
+                    check_resume_config({"world_size": saved["world_size"]},
+                                        {"world_size": dp},
+                                        allow=args.allow_config_change)
+                except ConfigDriftError as e:
+                    raise SystemExit(f"{e}: the checkpoint trained at another "
+                                     f"world size and no live elastic manifest "
+                                     f"explains it (pass --allow-config-change "
+                                     f"to resume on this one)") from None
+            if latest is None:
+                if main:
+                    print(f"[resume] no checkpoint in {args.init_checkpoint}; "
+                          f"cold start")
+            else:
+                probe.restore(state, epoch=latest)
+                start_epoch, best = latest + 1, probe.best_metric()
+                if main:
+                    print(f"[resume] epoch {latest} from {args.init_checkpoint} "
+                          f"(step {state.step}, best MAE {best:.3f})")
+    if manifest is not None:
+        # the survivor and a cold restart alike: the exact mid-epoch state
+        # from the shrink checkpoint (never the survivor's live tensors),
+        # and the interrupted epoch's remaining items replanned at this
+        # world's quantum
+        CheckpointManager(os.path.join(manifest_dir, el.ELASTIC_SUBDIR)).restore(
+            state, epoch=int(manifest["transition_id"]))
+        ctx["timeline"]["restored"] = time.time()
+        start_epoch = int(manifest["epoch"])
+        remaining = el.remaining_items(manifest, len(train_ds))
+        include = set(remaining) if remaining else None
+        if not remaining:
+            start_epoch += 1  # interrupted exactly at the epoch's end
+        if supervisor is not None:
+            # the transition's rank map and handled leavers: a stale
+            # signal file cannot trigger the shrink this manifest records
+            supervisor.adopt_manifest(manifest)
+        if main:
+            old = manifest["world_old"]
+            print(f"[elastic] resuming generation {manifest['generation']} "
+                  f"transition: epoch {manifest['epoch']} step "
+                  f"{manifest['steps_done']}, world {old['processes']}proc/"
+                  f"dp{old['dp']} -> {process_count()}proc/dp{dp}, "
+                  f"{len(remaining)} item(s) remaining ({resumed_from})")
     # after the resume check: an in-place resume reads the saved world first
     save_run_config(args.checkpoint_dir, dict(run_config(args), world_size=dp))
 
@@ -713,43 +907,79 @@ def _train(args, roots, topo, trace_window=None) -> dict:
     put = DevicePut(device)
     # under sp each rank keeps its rows of the replica's batch on the host
     put_fn = put if sp == 1 else (lambda b: put(spatial_rows(b, mesh)))
-    # priced prefetch depth (the scheduling core's): once per run, a pure
-    # function of each batcher's epoch-invariant schedule
+    # priced prefetch depth (the scheduling core's): a pure function of
+    # each batcher's epoch-invariant schedule
     prefetch = put.depth_for(train_batcher)
     eval_prefetch = put.depth_for(test_batcher)
-    logger = (MetricLogger(use_wandb=args.wandb, run_id_file=os.path.join(
-        args.checkpoint_dir, "wandb_run_id.txt")) if main else None)
-    summary = {"steps": 0, "schedule_steps": 0, "eval_batches": 0,
-               "epochs": [], "checkpoint_dir": ckpt.directory,
-               "world_size": dp}
-    # the bus (one JSONL per process) and, when a consumer exists, the
-    # instrumented loops; the ledger's drift gauge prices against the
-    # launch cost this run's plans used
-    from can_tpu_torch import obs
-    from can_tpu_torch.parallel import process_index
-    from can_tpu_torch.utils.profiling import profile_trace
-
-    telemetry, heartbeat, exporter = build_telemetry(
-        args, host_id=process_index(), trace_window=trace_window,
-        device=device)
+    if first:
+        ctx["logger"] = MetricLogger(
+            use_wandb=args.wandb, enabled=main, run_id_file=os.path.join(
+                args.checkpoint_dir, "wandb_run_id.txt"))
+        # the bus (one JSONL per process) and, when a consumer exists, the
+        # instrumented loops; built once, it outlives transitions
+        ctx["telemetry"], ctx["heartbeat"], ctx["exporter"] = build_telemetry(
+            args, host_id=process_index(), trace_window=trace_window,
+            device=device)
+        if supervisor is not None:
+            supervisor.telemetry = ctx["telemetry"]
+        for split, d in zip(("train", "test"), (train_ds, test_ds)):
+            ctx["telemetry"].emit("data.prepared", split=split, **d.prepared_note)
+    logger = ctx["logger"]
+    # a transition may have made another process the main one
+    logger.enabled = main
+    telemetry = ctx["telemetry"]
     if telemetry.ledger is not None:
+        # the drift gauge prices against the launch cost this run's plans used
         telemetry.ledger.plan_launch_cost_px = common["launch_cost_px"]
-    for split, d in (("train", train_ds), ("test", test_ds)):
-        telemetry.emit("data.prepared", split=split, **d.prepared_note)
+    if manifest is not None:
+        # the transition record, once per transition (survivor or cold
+        # restart), through the supervisor when armed
+        topo_now = {"generation": generation(), "process_count": process_count()}
+        emit = (supervisor.emit_transition if supervisor is not None
+                else lambda m, t, **kw: el.emit_transition(telemetry, m, t, **kw))
+        emit(manifest, topo_now, new_dp=dp,
+             remaining=0 if include is None else len(include),
+             global_batch_new=host_batch * dp, resumed_from=resumed_from)
     loop_tel = telemetry if instrument else None
     health = obs.HealthMonitor(telemetry) if loop_tel is not None else None
     try:
         with profile_trace(None if trace_window else (args.profile_dir or None)):
             for epoch in range(start_epoch, args.epochs):
-                batches = train_batcher.epoch(epoch)
-                summary["schedule_steps"] += train_batcher.batches_per_epoch(epoch)
+                inc = include if epoch == start_epoch else None
+                batches = train_batcher.epoch(epoch, inc)
+                summary["schedule_steps"] += len(train_batcher.global_schedule(epoch, inc))
                 if args.max_steps_per_epoch:
                     batches = itertools.islice(batches, args.max_steps_per_epoch)
                 lr = state.lr()
-                state, stats = train_one_epoch(train_step, state, batches,
-                                               put_fn=put_fn, epoch=epoch,
-                                               prefetch=prefetch,
-                                               telemetry=loop_tel, health=health)
+                on_step = (supervisor.step_hook(epoch) if supervisor is not None
+                           else None)
+                if manifest is not None and epoch == start_epoch:
+                    on_step = _stamp_first_step(on_step, ctx["timeline"], device)
+                try:
+                    state, stats = train_one_epoch(train_step, state, batches,
+                                                   put_fn=put_fn, epoch=epoch,
+                                                   prefetch=prefetch,
+                                                   telemetry=loop_tel, health=health,
+                                                   on_step=on_step)
+                except el.ElasticInterrupt as interrupt:
+                    summary["steps"] += interrupt.steps_done
+                    # coverage of an earlier transition counts only while
+                    # training that transition's remainder
+                    prior = (manifest.get("consumed", ())
+                             if manifest is not None and inc is not None else ())
+                    new_manifest = supervisor.shrink(
+                        interrupt, state=interrupt.state, epoch=epoch,
+                        checkpoint_dir=args.checkpoint_dir,
+                        schedule=train_batcher.global_schedule(epoch, inc),
+                        dp=dp, sp=sp, batch_size=host_batch,
+                        prior_consumed=prior)
+                    ctx["best"] = best
+                    if process_index() in new_manifest["leavers"]:
+                        if main:
+                            print("[elastic] leaving after the shrink "
+                                  "checkpoint (preempted)")
+                        return "leave", supervisor.leave()
+                    return "reform", new_manifest
                 row = {"epoch": epoch, "train_loss": stats.loss, "lr": lr,
                        "img_per_s": stats.img_per_s, "epoch_s": stats.seconds,
                        "steps": stats.steps,
@@ -784,8 +1014,7 @@ def _train(args, roots, topo, trace_window=None) -> dict:
                     if args.show and main:
                         _save_sample_viz(args, state.model, test_ds, epoch,
                                          logger, compute_dtype)
-                if main:
-                    logger.log(row, step=epoch)
+                logger.log(row, step=epoch)
                 summary["epochs"].append(row)
     except CheckpointIOError as e:
         if telemetry.incidents is not None:
@@ -795,16 +1024,25 @@ def _train(args, roots, topo, trace_window=None) -> dict:
     finally:
         train_batcher.close()
         test_batcher.close()
-        if logger is not None:
-            logger.finish()
-        # one teardown order for clean exit, abort and SIGTERM
-        obs.shutdown_telemetry(telemetry, heartbeat=heartbeat, exporter=exporter)
-    if item_cache is not None and main:
-        print(f"[data] item cache: {item_cache.stats()}")
-    summary["best_mae"] = best
-    if main:
-        print(f"[done] best MAE {best:.3f}" if best is not None else "[done]")
-    return summary
+    ctx["best"] = best
+    return "done", None
+
+
+def _stamp_first_step(on_step, timeline: dict, device):
+    """``on_step`` that also records, once the card has finished it, the
+    wall time of a resumed generation's first step (``timeline
+    ["first_step"]``)."""
+    import time
+
+    def hook(step: int) -> None:
+        if step == 1:
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            timeline["first_step"] = time.time()
+        if on_step is not None:
+            on_step(step)
+
+    return hook
 
 
 def _save_sample_viz(args, model, test_ds, epoch, logger, compute_dtype) -> None:
@@ -832,11 +1070,11 @@ def main(argv=None) -> int:
 
     args = parse_args(argv)
     try:
-        train(args)
+        summary = train(args)
     except (NonFiniteLossError, CheckpointIOError) as e:
         print(f"[abort] {e}", file=sys.stderr)
         return 1
-    return 0
+    return summary["exit_code"]  # 143: an elastic leaver's clean exit
 
 
 if __name__ == "__main__":

@@ -197,6 +197,10 @@ class ShardedBatcher:
         # overhead figures ask for the same one, and a rebuild is an
         # O(dataset) sort and group
         self._epoch_cache: Optional[Tuple[int, list]] = None
+        # the last subset schedule, keyed (epoch, frozenset(include)): an
+        # elastic resume asks for the same remainder several times, and
+        # each build runs the planner over the subset
+        self._subset_cache: Optional[Tuple[Tuple[int, frozenset], list]] = None
         self._shape_cache: Dict[int, Tuple[int, int]] = {}
         self.min_bucket_h = None if min_bucket_h is None else int(min_bucket_h)
         self.bucket_ladder: Optional[Tuple[Tuple[int, ...], Tuple[int, ...]]] = None
@@ -453,11 +457,17 @@ class ShardedBatcher:
         from the histogram; ``legacy_fallback`` means padding every
         straggler group to the batch proved cheaper."""
         if self._plan_cache is None:
-            planner = GlobalPlanner(self._cost_model(),
-                                    max_buckets=self.max_buckets,
-                                    mode=self.plan_mode, warn=self._warn)
-            self._plan_cache = planner.plan_with_fallback(self._cell_counts())
+            self._plan_cache = self._plan_for_counts(self._cell_counts())
         return self._plan_cache
+
+    def _plan_for_counts(self, counts: Dict[Tuple[int, int], int]):
+        """One plan for a cell-count histogram: the epoch's (cached by
+        ``_partial_plan``) or an elastic remainder's, at this batcher's
+        quantum.  A pure function of the counts, the cost model and the
+        budget, so every process derives the same plan."""
+        planner = GlobalPlanner(self._cost_model(), max_buckets=self.max_buckets,
+                                mode=self.plan_mode, warn=self._warn)
+        return planner.plan_with_fallback(counts)
 
     def planner_stats(self, epoch: int = 0) -> Dict[str, object]:
         """Planner decisions and the epoch schedule's realised economics,
@@ -493,25 +503,44 @@ class ShardedBatcher:
         return stats
 
     # -- the schedule ----------------------------------------------------------
-    def global_schedule(self, epoch: int
+    def global_schedule(self, epoch: int, include=None
                         ) -> List[Tuple[Tuple[int, int], List[Tuple[int, bool]]]]:
         """Deterministic batch plan: [(bucket_hw, [(idx, valid)])] for a
-        given (seed, epoch); each group is one launch."""
-        if self._epoch_cache is None or self._epoch_cache[0] != epoch:
-            self._epoch_cache = (epoch, self._build_schedule(epoch))
-        return self._epoch_cache[1]
+        given (seed, epoch); each group is one launch.
 
-    def _build_schedule(self, epoch: int):
+        ``include`` restricts the plan to a subset of item indices: the
+        elastic resume replans the uncovered remainder of an interrupted
+        epoch (a fresh plan over the subset's histogram, at this batcher's
+        quantum) in the epoch's shuffle order, so the items consumed
+        before the transition and the remainder cover the epoch once.
+        The last subset schedule is memoised; ``include=None`` is the
+        whole epoch."""
+        if include is None:
+            if self._epoch_cache is None or self._epoch_cache[0] != epoch:
+                self._epoch_cache = (epoch, self._build_schedule(epoch, None))
+            return self._epoch_cache[1]
+        key = (epoch, frozenset(int(i) for i in include))
+        if self._subset_cache is None or self._subset_cache[0] != key:
+            self._subset_cache = (key, self._build_schedule(epoch, set(key[1])))
+        return self._subset_cache[1]
+
+    def _build_schedule(self, epoch: int, include: Optional[set]):
         n = len(self.dataset)
         if self.shuffle:
             order = np.random.default_rng((self.seed, epoch)).permutation(n)
         else:
             order = np.arange(n)
+        if include is not None:
+            order = np.asarray([i for i in order.tolist() if i in include],
+                               dtype=np.int64)
         gbs = self.batch_size * self.process_count
         menu = self._remnant_menu() if self.remnant_sizes else None
         plan = None
         if self.bucket_ladder is not None and self.remnant_sizes:
-            plan = self._partial_plan()
+            plan = (self._partial_plan() if include is None
+                    else self._plan_for_counts(dict(collections.Counter(
+                        self._bucket_key(self._item_shape(int(i)))
+                        for i in order.tolist()))))
             if plan.legacy_fallback:
                 plan = None
         if plan is not None:
@@ -602,14 +631,16 @@ class ShardedBatcher:
         lo = self.process_index * sub
         return group[lo:lo + sub]
 
-    def epoch(self, epoch: int) -> Iterator[Batch]:
+    def epoch(self, epoch: int, include=None) -> Iterator[Batch]:
         """Yield this process's slice of each batch of the epoch's
         schedule, in order.  Each item's RNG (the flip) is keyed on (seed,
         epoch, index), so the output is the same with or without loader
-        threads.  With ``num_workers > 0`` the items of a sliding window
-        of upcoming batches load on the thread pool."""
+        threads, and a subset item (``include``: the elastic remainder,
+        see ``global_schedule``) loads as it would in the whole epoch.
+        With ``num_workers > 0`` the items of a sliding window of upcoming
+        batches load on the thread pool."""
         schedule = [(key, self.host_slice(group))
-                    for key, group in self.global_schedule(epoch)]
+                    for key, group in self.global_schedule(epoch, include)]
         pool = self._ensure_pool()
         if pool is None:
             for key, group in schedule:

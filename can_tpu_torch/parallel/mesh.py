@@ -83,6 +83,8 @@ def make_mesh(*, dp: Optional[int] = None, sp: int = 1) -> Mesh:
     if dp * sp != n:
         raise ValueError(f"dp*sp = {dp * sp} != {n} processes (one GPU each)")
     key = (generation(), int(dp), int(sp))
+    for stale in [k for k in _MESHES if k[0] != key[0]]:
+        del _MESHES[stale]  # an elastic transition's dead world's groups
     mesh = _MESHES.get(key)
     if mesh is None:
         mesh = _MESHES[key] = _build(int(dp), int(sp))

@@ -37,9 +37,12 @@ device is CUDA, gloo on the CPU.
 
 The runtime is generation-counted like the JAX package's:
 ``shutdown_runtime`` then ``init_runtime`` forms a new world and bumps
-``generation()``.  Identical initial weights need no protocol: every
-process builds the model from the same seed (and DDP broadcasts rank 0's
-state at construction in any case).
+``generation()``.  The elastic re-formation (``parallel/elastic.py``)
+passes ``env_rendezvous=False`` and the survivor's own ``device``: after a
+shrink the launcher's variables (``RANK``, ``WORLD_SIZE``,
+``MASTER_PORT``, ``LOCAL_RANK``) describe the dead world.  Identical
+initial weights need no protocol: every process builds the model from the
+same seed (and DDP broadcasts rank 0's state at construction in any case).
 """
 
 from __future__ import annotations
@@ -55,6 +58,7 @@ import torch
 import torch.distributed as dist
 
 from can_tpu_torch.device import resolve_device
+from can_tpu_torch.testing.faults import active_injector
 
 _generation = 0      # completed init_runtime() calls (monotonic, never reset)
 _active = False      # a runtime generation is live
@@ -257,7 +261,8 @@ def init_runtime(*, platform: str = "default",
                  num_processes: Optional[int] = None,
                  process_id: Optional[int] = None,
                  device: Optional[torch.device] = None,
-                 backend: Optional[str] = None) -> dict:
+                 backend: Optional[str] = None,
+                 env_rendezvous: bool = True) -> dict:
     """Resolve this process's device and, where a rendezvous is found,
     join the process group.  Returns the topology: ``{"process_index",
     "process_count", "local_rank", "device", "backend" (None without a
@@ -271,20 +276,33 @@ def init_runtime(*, platform: str = "default",
     the CPU): two ranks on one card need both (``gloo``, ``cuda:0``), since
     NCCL refuses two ranks on one GPU.  A call while a generation is
     live returns its topology unchanged.
+
+    ``env_rendezvous=False`` reads no environment: only the explicit
+    arguments form a world, and without a coordinator the process stays
+    alone.  The elastic re-formation must pass it, and a ``device`` with
+    it (the survivor keeps its GPU: old rank 2 becomes rank 1, still on
+    ``cuda:2``); without one only ``platform="cpu"`` is accepted, since a
+    device derived from the stale ``LOCAL_RANK`` may be a departed rank's.
     """
     global _generation, _active, _state
     if _active:
         return dict(_state["topology"])
-    rdv = resolve_rendezvous(coordinator_address=coordinator_address,
+    env = os.environ if env_rendezvous else {}
+    if not env_rendezvous and device is None and platform != "cpu":
+        raise ValueError("init_runtime(env_rendezvous=False) needs device=: "
+                         "LOCAL_RANK describes the launcher's world")
+    rdv = resolve_rendezvous(env, coordinator_address=coordinator_address,
                              num_processes=num_processes, process_id=process_id)
     local_rank = (rdv["local_rank"] if rdv is not None
-                  else int(os.environ.get("LOCAL_RANK", "0")))
+                  else int(env.get("LOCAL_RANK", "0")))
     if device is None:
         device = resolve_device(platform, local_rank=local_rank)
     device = torch.device(device)
+    if not env_rendezvous and device.type == "cuda":
+        local_rank = device.index if device.index is not None else 0
     if device.type == "cuda":
         torch.cuda.set_device(device)
-    state = {"group": None, "host_group": None}
+    state = {"group": None, "host_group": None, "device": device}
     if rdv is not None:
         backend = backend or ("nccl" if device.type == "cuda" else "gloo")
         kw = {"device_id": device} if backend == "nccl" else {}
@@ -313,15 +331,30 @@ def shutdown_runtime(*, reset: bool = False) -> None:
     """Tear the live generation down: destroy its process group (the
     reference defines ``cleanup()`` but never calls it; the CLIs call this
     from ``finally``).  A later ``init_runtime`` forms a new generation,
-    possibly at another world size.  ``reset`` is the JAX package's
-    signature: there it also drops the device backends, which PyTorch
-    does not cache per world, so both values do the same here."""
+    possibly at another world size.
+
+    ``reset=True`` is the counterpart of the JAX package's backend reset,
+    the bridge between elastic generations: it waits until the card is
+    idle (``torch.cuda.synchronize``), then destroys the gloo side group
+    and the world group, in that order.  Callers drop every object that
+    holds the old group (the DDP module, the mesh's groups) before the
+    next ``init_runtime``."""
     global _active, _state
-    del reset
-    if _active and _state.get("group") is not None:
+    group, host = _state.get("group"), _state.get("host_group")
+    if _active and group is not None:
+        device = _state.get("device")
+        if reset and device is not None and device.type == "cuda":
+            torch.cuda.synchronize(device)
+        if reset and host is not None and host is not group:
+            dist.destroy_process_group(host)
         dist.destroy_process_group()
     _active = False
     _state = {}
+
+
+def topology() -> Optional[dict]:
+    """The live generation's topology (``init_runtime``'s dict), or None."""
+    return dict(_state["topology"]) if _active else None
 
 
 def process_group():
@@ -373,6 +406,11 @@ def barrier(name: str = "barrier", timeout_s: Optional[float] = None) -> None:
         return
     if timeout_s is None:
         timeout_s = DEFAULT_BARRIER_TIMEOUT_S
+    inj = active_injector()
+    if inj is not None:
+        # a scheduled rendezvous_timeout fault holds THIS rank here, so
+        # every other member's bounded wait times out for real
+        inj.on_barrier(name, rank=process_index())
     group = _host_group()
     if timeout_s <= 0:
         dist.barrier(group=group)

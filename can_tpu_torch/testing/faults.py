@@ -70,11 +70,13 @@ traffic), because arrival timing and frame ordering belong to the
 client side of the protocol.
 
 Hooks are consulted only from sites that already gate on
-``active_injector()``.  In this package that is the fleet worker's
-``on_serve_batch`` (``serve/fleet.py``); the training hooks
-(``on_step``, ``on_ckpt_io``, ``on_barrier``) wait for elastic training
-(ROADMAP Queue 1 item 6), which calls them unchanged.  A production run
-without the variable never constructs an injector.
+``active_injector()``: the fleet worker's ``on_serve_batch``
+(``serve/fleet.py``), the elastic supervisor's per-step ``on_step``
+(``parallel/elastic.py``; a kill's ``rank`` is the launch rank, which a
+survivor keeps across re-formations), the checkpoint retry loop's
+``on_ckpt_io`` (``utils/checkpoint.py``) and the bounded barrier's
+``on_barrier`` (``parallel/runtime.py``), both at the current rank.  A
+production run without the variable never constructs an injector.
 
 ``make_kill_schedule`` derives the kill step from a seed: chaos runs
 randomise WHERE the fault lands across seeds while any single seed

@@ -1,5 +1,4 @@
-"""Host-side epoch loops (counterpart of ``can_tpu/train/loop.py:44-476``;
-the elastic hook, ROADMAP Queue 1 item 6, comes with a later slice).
+"""Host-side epoch loops (counterpart of ``can_tpu/train/loop.py:44-476``).
 
 * Batches are loaded and put on the device ``prefetch`` batches ahead in
   a background thread (``data/prefetch.py``; 0 = synchronous).
@@ -15,6 +14,10 @@ the elastic hook, ROADMAP Queue 1 item 6, comes with a later slice).
   the eval step's sums are global already
   (``parallel.data_parallel.make_dp_eval_step``).
 * Each epoch's wall time and images/s are returned in ``EpochStats``.
+* ``on_step`` runs after each step: the elastic supervisor's hook
+  (``parallel/elastic.py``).  An ``ElasticInterrupt`` it raises leaves
+  the loop carrying the live post-step state and the completed step
+  count; the batches prefetched after it are dropped, unapplied.
 
 With ``telemetry`` (an ``obs.Telemetry``) the loops emit the reference's
 events: ``compile`` per new batch signature (``obs.RecompileTracker``:
@@ -36,12 +39,13 @@ from __future__ import annotations
 
 import math
 import time
-from typing import Callable, Iterable, List, NamedTuple
+from typing import Callable, Iterable, List, NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from can_tpu_torch.data.prefetch import prefetch_to_device
+from can_tpu_torch.parallel.elastic import ElasticInterrupt
 from can_tpu_torch.parallel.runtime import process_count, reduce_value
 from can_tpu_torch.train.steps import NonFiniteLossError
 
@@ -121,12 +125,13 @@ def _notify_incident(telemetry, exc, *, phase: str, epoch: int,
     """An exception is about to unwind through the loop: the armed
     IncidentManager (``Telemetry.incidents``) snapshots the run's context
     first.  ``NonFiniteLossError`` is not routed here: the ``health.alert``
-    nan trigger inside ``_flush`` already dumped its bundle.  (The JAX
-    loop also passes its elastic shrink over, ROADMAP Queue 1 item 6;
-    the port has no elastic training yet.)"""
+    nan trigger inside ``_flush`` already dumped its bundle.  Nor is
+    ``ElasticInterrupt``: an agreed shrink is control flow, and the
+    preemption's bundle belongs to the leaver's SIGTERM hook."""
     inc = (getattr(telemetry, "incidents", None)
            if telemetry is not None else None)
-    if inc is not None and not isinstance(exc, NonFiniteLossError):
+    if inc is not None and not isinstance(exc, (NonFiniteLossError,
+                                                ElasticInterrupt)):
         inc.on_exception(exc, phase=phase, epoch=epoch, step=step)
 
 
@@ -208,7 +213,8 @@ def _flush(pending, loss_sum, img_sum, check_finite, epoch, step_count,
 def train_one_epoch(train_step: Callable, state, batches: Iterable, *,
                     put_fn: Callable, epoch: int = 0,
                     check_finite: bool = True, check_every: int = 8,
-                    prefetch: int = 2, telemetry=None, health=None):
+                    prefetch: int = 2, telemetry=None, health=None,
+                    on_step: Optional[Callable[[int], None]] = None):
     """Run one epoch; returns ``(state, EpochStats)``.
 
     train_step: ``(state, device_batch) -> (state, metrics)``.
@@ -218,6 +224,9 @@ def train_one_epoch(train_step: Callable, state, batches: Iterable, *,
     prefetch: batches loaded and put ahead in a background thread.
     telemetry / health: the module docstring's events and detectors
     (``health`` is ignored without ``telemetry``).
+    on_step: ``on_step(steps_done)`` after each step (the elastic
+    supervisor's hook); an ``ElasticInterrupt`` it raises gets the live
+    state (``.state``) and ``.steps_done`` attached on the way out.
     """
     if telemetry is None:
         health = None
@@ -252,6 +261,8 @@ def train_one_epoch(train_step: Callable, state, batches: Iterable, *,
                 timer.stop(shape=shape, record=not train_step.last_first_call)
             pending.append(metrics)
             steps += 1
+            if on_step is not None:
+                on_step(steps)
             if len(pending) >= max(check_every, 1):
                 t_flush = time.perf_counter() if telemetry is not None else 0.0
                 loss_sum, img_sum, win = _flush(
@@ -283,8 +294,13 @@ def train_one_epoch(train_step: Callable, state, batches: Iterable, *,
                                         health=health,
                                         collect=telemetry is not None)
     except Exception as e:
+        if isinstance(e, ElasticInterrupt):
+            # the agreed shrink point: the shrink checkpoint saves exactly
+            # this post-step state
+            e.state = state
+            e.steps_done = steps
         # a crashed loader, a poisoned batch, a device error: the bundle
-        # first, then unwind (the NaN abort is excluded inside)
+        # first, then unwind (the NaN abort and the shrink are excluded)
         _notify_incident(telemetry, e, phase="train", epoch=epoch,
                          step=steps)
         raise

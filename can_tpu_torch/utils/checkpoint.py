@@ -14,6 +14,8 @@ behind the latest save and the best model is never lost.
 
 I/O retries transient filesystem errors with exponential backoff and
 jitter; past the retry budget it raises the typed ``CheckpointIOError``.
+A ``ckpt_io`` fault of ``testing/faults.py`` (``CAN_TPU_FAULTS``) fails
+the matching attempts from inside the retry loop.
 
 Under several processes (DDP) rank 0 writes and every rank then waits at
 a bounded barrier (``parallel.runtime.barrier``), so no rank reads a
@@ -34,7 +36,8 @@ from typing import List, Optional
 
 import torch
 
-from can_tpu_torch.parallel.runtime import barrier, is_main_process
+from can_tpu_torch.parallel.runtime import barrier, is_main_process, process_index
+from can_tpu_torch.testing.faults import active_injector
 
 RUN_CONFIG_NAME = "run_config.json"
 STATE_NAME = "state.pt"
@@ -97,14 +100,26 @@ def load_run_config(directory: str) -> Optional[dict]:
         return json.load(f)
 
 
+# the keys an elastic transition legitimately changes: the world shrank,
+# so dp (and the lr peak and global batch derived from it) differs by
+# construction.  Everything else must still match: elastic is a world
+# change, never a licence for schedule drift.
+ELASTIC_DRIFT_KEYS = ("world_size",)
+
+
 def check_resume_config(saved: dict, current: dict, *,
-                        allow: bool = False) -> List[str]:
+                        allow: bool = False,
+                        allow_elastic: bool = False) -> List[str]:
     """Compare a checkpoint's saved run config with the resuming run's;
     returns the sorted drifted keys, raising ``ConfigDriftError`` naming
-    each ``key: saved -> current`` unless ``allow``."""
+    each ``key: saved -> current`` unless ``allow`` — or the drift is
+    confined to ``ELASTIC_DRIFT_KEYS`` and ``allow_elastic`` (a live
+    elastic manifest explains a dp-only change)."""
     keys = sorted(set(saved) | set(current))
     drifted = [k for k in keys if saved.get(k) != current.get(k)]
     if drifted and not allow:
+        if allow_elastic and all(k in ELASTIC_DRIFT_KEYS for k in drifted):
+            return drifted
         detail = ", ".join(f"{k}: {saved.get(k)!r} -> {current.get(k)!r}"
                            for k in drifted)
         raise ConfigDriftError(
@@ -150,6 +165,11 @@ class CheckpointManager:
         last: Optional[BaseException] = None
         for attempt in range(1, self.retries + 1):
             try:
+                inj = active_injector()
+                if inj is not None:
+                    # a scheduled ckpt_io fault fails INSIDE the attempt,
+                    # so the retry path runs for real
+                    inj.on_ckpt_io(op, rank=process_index())
                 return fn()
             except FileNotFoundError:
                 raise  # a missing checkpoint is not transient

@@ -264,6 +264,24 @@ slice 10, after ddp:
               ``--sp 2`` against world 1 (MAE and MSE within 1e-6); a dp=2 x
               sp=2 step of four ranks at (4, 256, 320) against world 1
               (rank = d * sp + s);
+slice 13, after sp:
+   elastic  — elastic shrink-and-continue through the train CLI
+              (``--elastic-dir --elastic-check-every 1``, BN model,
+              ``--bn-impl kernel``, 24 synthetic images at 256x320 and
+              224x288, 2 per rank): two gloo ranks on cuda:0, rank 1
+              SIGTERMed by ``CAN_TPU_FAULTS`` at a seeded step, f32 and bf16
+              side by side (their shrinking runs at once, then their cold
+              restarts): the leaver exits 143; the survivor re-forms at
+              world 1 on cuda:0, trains the remainder and evaluates; one
+              ``elastic.transition``; consumed and remaining items
+              partition the epoch; a cold restart at world 1 from the
+              directory as the shrink left it is bitwise equal (every
+              tensor of the checkpoint, the step, the epoch's loss, MAE,
+              MSE); launches per rank exact (BN forward and backward 16 a
+              step, context one a step and eval batch); the stages' times
+              (SIGTERM, agreement, shrink checkpoint, barrier,
+              re-formation, restore, first step) against the cold leg's
+              launch to first step;
 9. report   — the card's name and power limit (nvidia-smi's own line), a
               ``kernels`` JSON line,
               and last the result line ``{"ok": true, "device": {...}}``.
@@ -277,7 +295,16 @@ obs_train phases alone;
 build and the sp steps over NCCL with one rank per GPU (dp=1 x sp=2 on two,
 with step times, the halo replayed alone and the UCF-scale image; dp=2 x
 sp=2 on four), each against world 1 on cuda:0 by the sp phase's gates.
-None of the three prints a result line.
+``python3 chip_smoke.py --elastic-only`` runs the build and the elastic
+phase alone; ``python3 chip_smoke.py --elastic-nccl``, on a machine with 4
+GPUs, runs the build, DDP with SyncBN over NCCL at world 2 and 4 (one rank
+per GPU, each world twice) against world 1 on cuda:0 by the ddp phase's
+gates with the step's ms at each world, and the train CLI's shrink from 4
+NCCL ranks to 3 with rank 0 (the checkpoint writer and coordinator)
+leaving, bitwise equal to a cold restart at world 3 on three cards.  Ranks
+are started one process each with their rendezvous variables, never by
+torchrun, whose agent would stop the survivors when the leaver exits 143.
+None of these prints a result line.
 
 ``python3 chip_smoke.py --measure-only`` runs the build and the timings of
 phases 2 and 4 that reach the kernels only through interfaces older
@@ -2370,9 +2397,9 @@ def obs_train_run(root: Path, work: Path, bf16: bool, telemetry: bool) -> dict:
             "periods": _step_periods(marks, first)}
 
 
-def _state_tensors(ckpt: Path) -> dict:
+def _state_tensors(ckpt: Path, map_location=None) -> dict:
     """Every tensor of a checkpoint's state (weights, running statistics,
-    momentum), by path."""
+    momentum), by path (on the card that saved it, or ``map_location``)."""
     import torch
 
     out = {}
@@ -2387,7 +2414,8 @@ def _state_tensors(ckpt: Path) -> dict:
         elif isinstance(x, torch.Tensor):
             out[key] = x
 
-    state = torch.load(ckpt / "0" / "state.pt", weights_only=True)
+    state = torch.load(ckpt / "0" / "state.pt", weights_only=True,
+                       map_location=map_location)
     for part in ("model", "optimizer"):
         walk(state[part], part)
     return out
@@ -4228,10 +4256,11 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def run_ranks(cmds, work: Path, tag: str) -> list:
+def run_ranks(cmds, work: Path, tag: str, want=None) -> list:
     """Start every (argv, env) at once, each in a session of its own, wait
     up to DDP_TIMEOUT_S, and kill whatever is left; logs go to
-    ``work/ddp_{tag}_{i}.log``.  Fails unless every process exits 0."""
+    ``work/ddp_{tag}_{i}.log``.  Fails unless the exit codes are ``want``
+    (default: every process 0)."""
     import signal
 
     procs, logs = [], []
@@ -4254,10 +4283,10 @@ def run_ranks(cmds, work: Path, tag: str) -> list:
                 os.killpg(p.pid, signal.SIGKILL)
                 p.wait()
     rcs = [p.returncode for p in procs]
-    if any(rcs):
+    if rcs != (want or [0] * len(procs)):
         for path, rc in zip(logs, rcs):
             log(f"[ddp] {path.name} (exit {rc}):\n" + path.read_text()[-4000:])
-        fail(f"[ddp] {tag}: exit codes {rcs}")
+        fail(f"[ddp] {tag}: exit codes {rcs}, want {want or [0] * len(procs)}")
     return logs
 
 
@@ -4313,6 +4342,10 @@ def ddp_worker(spec_path: Path) -> int:
     spec = json.loads(spec_path.read_text())
     if spec["mode"] == "sp":
         return sp_worker(spec)
+    if spec["mode"] == "elastic":
+        return elastic_worker(spec)
+    if spec["mode"] == "nccl":
+        return nccl_worker(spec)
     out = {}
     if spec["mode"] == "world1":
         # the train CLI under torchrun: its own rendezvous, NCCL world 1
@@ -5130,6 +5163,401 @@ def phase_sp_nccl(work: Path) -> None:
         + " per rank")
 
 
+# [elastic]: elastic shrink-and-continue through the train CLI.  On one
+# card two gloo ranks on cuda:0 (as [ddp]); with --elastic-nccl four NCCL
+# ranks, one per GPU.  Each leg is the CLI in its own process
+# (``--ddp-worker`` with an "elastic" spec), never under torchrun: its
+# agent would stop the survivors when the leaver exits 143.
+ELASTIC_SIZES = ((256, 320), (224, 288))
+ELASTIC_TRAIN, ELASTIC_TEST = 24, 4
+ELASTIC_BATCH = 2      # per rank: a world of 2 steps 4 images, of 4 steps 8
+ELASTIC_KILL_SEED = 5  # the seeded step (1 or 2) of the SIGTERM
+ELASTIC_STAGES = ("agreed", "shrink_saved", "shrink_barrier", "reformed",
+                  "restored", "first_step")
+
+
+def elastic_data(work: Path) -> Path:
+    from can_tpu_torch.data import make_synthetic_dataset
+
+    root = work / "elastic_synth"
+    make_synthetic_dataset(str(root / "train_data"), ELASTIC_TRAIN,
+                           sizes=ELASTIC_SIZES, seed=SEED)
+    make_synthetic_dataset(str(root / "test_data"), ELASTIC_TEST,
+                           sizes=ELASTIC_SIZES, seed=SEED + 1)
+    return root
+
+
+def elastic_argv(root: Path, leg: Path, bf16: bool) -> list:
+    return (["--data_root", str(root), "--syncBN", "--bn-impl", "kernel",
+             "--batch-size", str(ELASTIC_BATCH), "--epochs", "1", "--lr", "1e-6",
+             "--seed", str(SEED), "--num-workers", "2", "--prepared-root", "off",
+             "--checkpoint-dir", str(leg / "ck"), "--telemetry-dir", str(leg / "tel"),
+             "--elastic-dir", str(leg.parent / "sig"), "--elastic-check-every", "1"]
+            + (["--bf16"] if bf16 else []))
+
+
+def elastic_worker(spec: dict) -> int:
+    """One rank of an [elastic] leg: the train CLI with its launch counts,
+    summary and elastic timeline; exits with the CLI's code (143 for the
+    leaver).  ``gloo``: the rank joins a gloo world on cuda:0 first."""
+    import torch
+
+    from can_tpu_torch.cli import train as train_cli
+    from can_tpu_torch.ops import cuda_bn as cb
+    from can_tpu_torch.ops import cuda_context as cc
+    from can_tpu_torch.parallel import init_runtime
+
+    if spec["gloo"]:
+        init_runtime(device=torch.device("cuda", 0), backend="gloo")
+    cb.reset_launches()
+    cc.reset_launches()  # the main path starts here
+    summary = train_cli.train(train_cli.parse_args(spec["argv"]))
+    launches = {"bn": cb.LAUNCHES, "bn_backward": cb.BACKWARD_LAUNCHES,
+                "context": cc.LAUNCHES}  # ... and ends here
+    out = {k: summary[k] for k in ("steps", "eval_batches", "epochs", "world_size",
+                                   "generations", "topology", "timeline", "exit_code")}
+    out.update(launches=launches, t_launch=spec["t_launch"])
+    Path(spec["out"]).write_text(json.dumps(out))
+    return summary["exit_code"]
+
+
+def elastic_cmds(leg: Path, argv: list, world: int, *, gloo: bool,
+                 faults=None) -> list:
+    """The (argv, env) of ``world`` ranks of the train CLI: gloo on cuda:0,
+    or NCCL one rank per GPU (a world of 1: no process group)."""
+    leg.mkdir(parents=True, exist_ok=True)
+    port = _free_port()
+    cmds = []
+    for rank in range(world):
+        spec = leg / f"spec{rank}.json"
+        spec.write_text(json.dumps({"mode": "elastic", "argv": argv, "gloo": gloo,
+                                    "out": str(leg / f"rank{rank}.json"),
+                                    "t_launch": time.time()}))
+        env = dict(os.environ)
+        if world > 1:
+            env.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank),
+                       MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+        if faults is not None:
+            env["CAN_TPU_FAULTS"] = json.dumps(faults)
+        cmds.append(([sys.executable, str(ROOT / "chip_smoke.py"), "--ddp-worker",
+                      str(spec)], env))
+    return cmds
+
+
+def elastic_results(leg: Path, world: int) -> list:
+    return [json.loads((leg / f"rank{r}.json").read_text()) for r in range(world)]
+
+
+def _transitions(tel: Path) -> list:
+    return [ev for path in sorted(tel.glob("telemetry.host*.jsonl"))
+            for ev in map(json.loads, path.read_text().splitlines())
+            if ev.get("kind") == "elastic.transition"]
+
+
+def _shrink_point_copy(ckpt: Path, dst: Path, manifest: dict) -> None:
+    """The checkpoint directory as the shrink left it, before any survivor
+    re-formed: the shrink checkpoints, the manifest, the old world's run
+    config (tests/test_torch_elastic_chaos.py's rule)."""
+    import shutil
+
+    from can_tpu_torch.parallel import elastic as el
+
+    shutil.rmtree(dst, ignore_errors=True)
+    dst.mkdir(parents=True)
+    shutil.copytree(ckpt / el.ELASTIC_SUBDIR, dst / el.ELASTIC_SUBDIR)
+    shutil.copy(ckpt / el.MANIFEST_NAME, dst / el.MANIFEST_NAME)
+    cfg = json.loads((ckpt / "run_config.json").read_text())
+    cfg["world_size"] = manifest["world_old"]["dp"]
+    (dst / "run_config.json").write_text(json.dumps(cfg))
+
+
+def elastic_shrinks(root: Path, work: Path, cases: list, counts: dict) -> None:
+    """Each case (tag, base dir, world, leaver, gloo, bf16): ``world`` ranks
+    of the train CLI, ``leaver`` SIGTERMed at a seeded step, then a cold
+    restart at ``world - 1`` from the directory as the shrink left it;
+    every gate.  The cases' shrinking runs start together, then their cold
+    restarts: each leg's processes share the machine with the other cases'."""
+    import shutil
+
+    import torch
+
+    from can_tpu_torch.parallel import elastic as el
+    from can_tpu_torch.testing.faults import make_kill_schedule
+
+    cmds, want = [], []
+    for c in cases:
+        shutil.rmtree(c["base"], ignore_errors=True)
+        c["faults"] = make_kill_schedule(ELASTIC_KILL_SEED, rank=c["leaver"], max_step=2)
+        cmds += elastic_cmds(c["base"] / "run", elastic_argv(root, c["base"] / "run",
+                                                             c["bf16"]),
+                             c["world"], gloo=c["gloo"], faults=c["faults"])
+        want += [el.LEAVE_EXIT_CODE if r == c["leaver"] else 0 for r in range(c["world"])]
+    t0 = time.perf_counter()
+    run_ranks(cmds, work, "elastic_run", want=want)
+    run_s = time.perf_counter() - t0
+    cmds = []
+    for c in cases:
+        tag, base, world, leaver = c["tag"], c["base"], c["world"], c["leaver"]
+        c["ranks"] = ranks = elastic_results(base / "run", world)
+        c["survivors"] = survivors = [r for r in range(world) if r != leaver]
+        # the survivors' world: renumbered, each on its own card
+        for new, old in enumerate(survivors):
+            topo = ranks[old]["topology"]
+            want_dev = "cuda:0" if c["gloo"] else f"cuda:{old}"
+            if (topo["process_count"], topo["process_index"], topo["device"],
+                    ranks[old]["generations"]) != (world - 1, new, want_dev, 2):
+                fail(f"[elastic] {tag}: survivor {old} re-formed as {topo} "
+                     f"(generations {ranks[old]['generations']}), want rank {new} of "
+                     f"{world - 1} on {want_dev}")
+        ck = base / "run" / "ck"
+        c["manifest"] = m = el.load_manifest(str(ck))
+        # one elastic.transition per surviving process (each writes its own
+        # JSONL), none from the leaver, all the same record
+        events = _transitions(base / "run" / "tel")
+        if (m is None or m["leavers"] != [leaver]
+                or sorted(ev["host_id"] for ev in events) != survivors
+                or any(ev["payload"] != events[0]["payload"] for ev in events)):
+            fail(f"[elastic] {tag}: manifest {m}, elastic.transition events {events} "
+                 f"(want one from each of hosts {survivors})")
+        t = events[0]["payload"]
+        c["remaining"] = rem = el.remaining_items(m, ELASTIC_TRAIN)
+        consumed = set(m["consumed"])
+        if (consumed | set(rem) != set(range(ELASTIC_TRAIN)) or consumed & set(rem)
+                or not rem or t["remaining_items"] != len(rem)
+                or (t["processes_old"], t["processes_new"]) != (world, world - 1)
+                or m["steps_done"] < c["faults"]["faults"][0]["step"]):
+            fail(f"[elastic] {tag}: consumed {sorted(consumed)} and remaining {rem} do "
+                 f"not partition the epoch's {ELASTIC_TRAIN} items, or the event {t} "
+                 f"is off")
+        # the cold restart at world - 1 from the directory as the shrink left it
+        _shrink_point_copy(ck, base / "snap", m)
+        cmds += elastic_cmds(base / "cold", elastic_argv(root, base / "cold", c["bf16"])
+                             + ["--init_checkpoint", str(base / "snap")], world - 1,
+                             gloo=False)
+    t0 = time.perf_counter()
+    run_ranks(cmds, work, "elastic_cold", want=[0] * len(cmds))
+    cold_s = time.perf_counter() - t0
+    for c in cases:
+        tag, base, world, leaver = c["tag"], c["base"], c["world"], c["leaver"]
+        ranks, survivors, m = c["ranks"], c["survivors"], c["manifest"]
+        cold = elastic_results(base / "cold", world - 1)
+        # launches per rank exact: a short count is a plain fallback
+        for label, outs in (("run", ranks), ("cold", cold)):
+            for r, out in enumerate(outs):
+                got = out["launches"]
+                want_l = {"bn": BN_LAYERS * out["steps"],
+                          "bn_backward": BN_LAYERS * out["steps"],
+                          "context": out["steps"] + out["eval_batches"]}
+                if got != want_l or not out["steps"]:
+                    fail(f"[elastic] {tag} {label} rank {r}: launches {got}, want {want_l}")
+                for k in counts:
+                    counts[k] += got[k]
+        cold_events = _transitions(base / "cold" / "tel")
+        if (len(cold_events) != world - 1
+                or any(ev["payload"]["resumed_from"] != "cold_restart"
+                       for ev in cold_events)):
+            fail(f"[elastic] {tag}: cold restart recorded {cold_events}")
+        # bitwise: every parameter, momentum buffer and running statistic,
+        # the step, the epoch's loss, MAE and MSE
+        ck, ck_cold = base / "run" / "ck", base / "cold" / "ck"
+        # on the CPU: the survivors' checkpoint was written from cuda:1
+        # after a rank-0 leaver, the cold restart's from cuda:0
+        a, b = _state_tensors(ck, "cpu"), _state_tensors(ck_cold, "cpu")
+        bad, worst = snap_diff(a, b)
+        sa = torch.load(ck / "0" / "state.pt", weights_only=True, map_location="cpu")
+        sb = torch.load(ck_cold / "0" / "state.pt", weights_only=True, map_location="cpu")
+        row_a, row_b = ranks[survivors[0]]["epochs"][-1], cold[0]["epochs"][-1]
+        same = {k: row_a[k] == row_b[k] for k in ("train_loss", "mae", "mse", "lr")}
+        if (bad or a.keys() != b.keys() or sa["step"] != sb["step"]
+                or not all(same.values())):
+            fail(f"[elastic] {tag}: survivors vs cold restart differ: {len(bad)} "
+                 f"tensors (worst {worst:.3e}), step {sa['step']} vs {sb['step']}, "
+                 f"{same}")
+        tl = ranks[survivors[0]]["timeline"]
+        sigterm = ranks[leaver]["timeline"]["sigterm"]
+        stages = [sigterm] + [tl[k] for k in ELASTIC_STAGES]
+        ctl = cold[0]["timeline"]
+        log(f"[elastic] {tag}: {world} ranks, rank {leaver} SIGTERMed at step "
+            f"{c['faults']['faults'][0]['step']} (exit 143), the agreement at step "
+            f"{m['steps_done']}; {len(m['consumed'])} items consumed + "
+            f"{len(c['remaining'])} remaining = {ELASTIC_TRAIN}; survivors re-formed at "
+            f"world {world - 1} ("
+            + ("gloo, cuda:0" if c["gloo"] else
+               "NCCL, cuda:" + ",".join(str(r) for r in survivors))
+            + f"), trained {row_a['steps']} steps and evaluated; one elastic.transition "
+            f"per survivor; the cold restart at world {world - 1} bitwise equal: "
+            f"{len(a)} tensors, step {sa['step']}, loss {row_a['train_loss']!r}, MAE "
+            f"{row_a['mae']!r}, MSE {row_a['mse']!r}; launches per rank exact "
+            + "; ".join(f"rank {r} {o['launches']}" for r, o in enumerate(ranks)))
+        log(f"[elastic] {tag} timeline (s): SIGTERM -> agreement "
+            + " -> ".join(f"{b_ - a_:.3f}" for a_, b_ in zip(stages, stages[1:]))
+            + " (agreement, shrink checkpoint, barrier, re-formation, restore, first "
+            f"step); SIGTERM -> first step {tl['first_step'] - sigterm:.2f} s; the cold "
+            f"leg: launch -> first step {ctl['first_step'] - cold[0]['t_launch']:.2f} s "
+            f"(launch -> the CLI {ctl['start'] - cold[0]['t_launch']:.2f} s)")
+    log(f"[elastic] {', '.join(c['tag'] for c in cases)}: the shrinking runs "
+        f"{run_s:.1f} s, the cold restarts {cold_s:.1f} s (each leg's processes at "
+        f"once)")
+
+
+def phase_elastic(work: Path) -> dict:
+    """Two gloo ranks on cuda:0, rank 1 SIGTERMed, f32 and bf16 side by
+    side: the survivor re-forms at world 1 and matches a cold restart
+    bitwise."""
+    t_phase = time.perf_counter()
+    root = elastic_data(work)
+    counts = {"bn": 0, "bn_backward": 0, "context": 0}
+    cases = [{"tag": f"2 -> 1 {tag}", "base": work / "elastic" / tag, "world": 2,
+              "leaver": 1, "gloo": True, "bf16": tag == "bf16"} for tag in ("f32", "bf16")]
+    elastic_shrinks(root, work / "elastic", cases, counts)
+    log(f"[elastic] launches in this phase: {counts}; the phase took "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
+def nccl_worker(spec: dict) -> int:
+    """One NCCL rank of --elastic-nccl (a): one DDP step per case on its
+    slice of the fixed batch, its state, launches and step times."""
+    import torch
+
+    from can_tpu_torch.device import use_deterministic, use_full_f32
+    from can_tpu_torch.models import CANNet
+    from can_tpu_torch.ops import bn_moments as bm
+    from can_tpu_torch.parallel import (
+        init_runtime,
+        make_dp_train_step,
+        make_mesh,
+        shutdown_runtime,
+    )
+    from can_tpu_torch.train import create_train_state, make_lr_schedule
+
+    use_deterministic()
+    use_full_f32()
+    topo = init_runtime()
+    world, rank = topo["process_count"], topo["process_index"]
+    batch = ddp_batch(Path(spec["root"]), rank, world)
+    out = {"topology": topo, "cases": {}, "step_ms": {}}
+    for tag, remat in DDP_CASES:
+        loss, sd, launches = ddp_step_state(batch, tag.split()[0], remat, world)
+        path = Path(spec["out_dir"]) / f"{tag.replace(' ', '_')}_rank{rank}.pt"
+        torch.save(sd, path)
+        out["cases"][tag] = {"loss": loss, "state": str(path), "launches": launches}
+    for tag in ("f32", "bf16"):
+        model = CANNet(device="cuda", seed=SEED, batch_norm=True)
+        model = model.to(memory_format=torch.channels_last)
+        state = create_train_state(model, make_lr_schedule(1e-6, world_size=world))
+        step = make_dp_train_step(model, make_mesh(), bn_ops=bm.make_bn_ops("kernel"),
+                                  compute_dtype=torch.bfloat16 if tag == "bf16" else None)
+        out["step_ms"][tag] = time_ms(lambda: step(state, batch), reps=DDP_STEP_REPS)
+        del model, state, step
+    shutdown_runtime()
+    (Path(spec["out_dir"]) / f"nccl_rank{rank}.json").write_text(json.dumps(out))
+    return 0
+
+
+def phase_elastic_nccl(work: Path) -> None:
+    """``--elastic-nccl``, on a machine with 4 GPUs: (a) DDP with SyncBN
+    over NCCL at world 2 and 4, one rank per GPU, against world 1 on
+    cuda:0 by [ddp]'s gates, each world run twice; (b) the train CLI's
+    elastic shrink from 4 NCCL ranks to 3 with rank 0 (the checkpoint
+    writer and coordinator) leaving, bitwise equal to a cold restart at
+    world 3 on three cards."""
+    import torch
+
+    from can_tpu_torch.device import use_deterministic
+    from can_tpu_torch.models import CANNet
+    from can_tpu_torch.ops import bn_moments as bm
+    from can_tpu_torch.train import make_train_step
+
+    if torch.cuda.device_count() < 4:
+        fail(f"--elastic-nccl needs 4 GPUs, {torch.cuda.device_count()} visible")
+    use_deterministic()
+    root = train_data(work)
+    nccl_dir = work / "ddp_nccl"
+    nccl_dir.mkdir(exist_ok=True)
+    batch = fixed_batch(root)
+    refs = {}
+    for tag, remat in DDP_CASES:
+        loss, sd, _ = ddp_step_state(batch, tag.split()[0], remat, 1)
+        refs[tag] = (loss, sd)
+    step_ms = {}
+    for tag in ("f32", "bf16"):
+        state = _state()
+        step = make_train_step(bn_ops=bm.make_bn_ops("kernel"),
+                               compute_dtype=torch.bfloat16 if tag == "bf16" else None)
+        step_ms[tag] = time_ms(lambda: step(state, batch), reps=DDP_STEP_REPS)
+        del state, step
+    del batch
+    old = {k: v.detach().cpu().clone() for k, v in
+           CANNet(device="cpu", seed=SEED, batch_norm=True).state_dict().items()}
+    torch.cuda.empty_cache()
+    for world in (2, 4):
+        runs = []
+        for run in ("a", "b"):
+            out_dir = nccl_dir / f"world{world}_{run}"
+            out_dir.mkdir(exist_ok=True)
+            port = _free_port()
+            cmds = []
+            for rank in range(world):
+                spec = out_dir / f"spec{rank}.json"
+                spec.write_text(json.dumps({"mode": "nccl", "root": str(root),
+                                            "out_dir": str(out_dir)}))
+                cmds.append(([sys.executable, str(ROOT / "chip_smoke.py"),
+                              "--ddp-worker", str(spec)],
+                             dict(os.environ, RANK=str(rank), WORLD_SIZE=str(world),
+                                  LOCAL_RANK=str(rank), MASTER_ADDR="127.0.0.1",
+                                  MASTER_PORT=str(port))))
+            t0 = time.perf_counter()
+            run_ranks(cmds, nccl_dir, f"world{world}_{run}")
+            log(f"[ddp] NCCL world {world}, run {run}: {time.perf_counter() - t0:.1f} s "
+                f"for {world} ranks")
+            runs.append([json.loads((out_dir / f"nccl_rank{r}.json").read_text())
+                         for r in range(world)])
+        for r, out in enumerate(runs[0]):
+            topo = out["topology"]
+            if (topo["backend"], topo["device"], topo["process_count"]) != (
+                    "nccl", f"cuda:{r}", world):
+                fail(f"[ddp] NCCL world {world} rank {r}: topology {topo}")
+        for tag, remat in DDP_CASES:
+            want_launch = {"bn": BN_LAYERS * (2 if remat else 1), "bn_backward": BN_LAYERS,
+                           "context": 2 if remat else 1}
+            states = {}
+            for run in range(2):
+                for r in range(world):
+                    got = runs[run][r]["cases"][tag]["launches"]
+                    if got != want_launch:
+                        fail(f"[ddp] NCCL world {world} {tag}: run {run} rank {r} "
+                             f"launches {got}, want {want_launch}")
+                    states[(run, r)] = torch.load(runs[run][r]["cases"][tag]["state"])
+            for key in states:
+                bad, worst = snap_diff(states[(0, 0)], states[key])
+                if bad:
+                    fail(f"[ddp] NCCL world {world} {tag}: run/rank {key} differs from "
+                         f"run a rank 0 in {len(bad)} tensors (worst {worst:.3e})")
+            dt = tag.split()[0]
+            loss, (loss1, sd1) = runs[0][0]["cases"][tag]["loss"], refs[tag]
+            loss_rel = abs(loss - loss1) / abs(loss1)
+            upd = _update_rel(old, states[(0, 0)], sd1)
+            log(f"[ddp] NCCL world {world} ({TRAIN_BATCH // world} images per rank, one "
+                f"GPU each) against world 1 ({TRAIN_BATCH} images on cuda:0), one {tag} "
+                f"step: loss rel {loss_rel:.2e} (tolerance {DDP_LOSS_RTOL[dt]:g}), the "
+                f"update of all weights and statistics within {upd:.3e} relative L2 "
+                f"(tolerance {DDP_UPDATE_RTOL[dt]:g}); all {world} ranks and a second "
+                f"run bitwise equal; launches per rank {want_launch}")
+            if loss_rel > DDP_LOSS_RTOL[dt] or not upd <= DDP_UPDATE_RTOL[dt]:
+                fail(f"[ddp] NCCL world {world} {tag} is off world 1: loss rel "
+                     f"{loss_rel:.2e}, update rel {upd:.3e}")
+        for tag in ("f32", "bf16"):
+            ms = [out["step_ms"][tag] for out in runs[0]]
+            log(f"[ddp] NCCL world {world} {tag} DDP step at {TRAIN_BATCH // world} "
+                f"images per rank: " + " / ".join(f"{t:.1f}" for t in ms)
+                + f" ms by rank (world 1 at {TRAIN_BATCH} images: {step_ms[tag]:.1f} ms)")
+    counts = {"bn": 0, "bn_backward": 0, "context": 0}
+    elastic_shrinks(elastic_data(work), work / "elastic_nccl",
+                    [{"tag": "NCCL 4 -> 3 f32", "base": work / "elastic_nccl" / "f32",
+                      "world": 4, "leaver": 0, "gloo": False, "bf16": False}], counts)
+
+
 def main(argv) -> int:
     import torch
 
@@ -5137,10 +5565,14 @@ def main(argv) -> int:
     sp_only = argv == ["--sp-only"]
     sp_nccl = argv == ["--sp-nccl"]
     obs_only = argv == ["--obs-only"]
+    elastic_only = argv == ["--elastic-only"]
+    elastic_nccl = argv == ["--elastic-nccl"]
     worker = len(argv) == 2 and argv[0] == "--ddp-worker"
-    if argv and not (measure_only or sp_only or sp_nccl or obs_only or worker):
+    if argv and not (measure_only or sp_only or sp_nccl or obs_only or elastic_only
+                     or elastic_nccl or worker):
         fail(f"unknown arguments {argv} (none, --measure-only, --sp-only, "
-             f"--sp-nccl, --obs-only, or --ddp-worker SPEC)")
+             f"--sp-nccl, --obs-only, --elastic-only, --elastic-nccl, or "
+             f"--ddp-worker SPEC)")
 
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke run needs a GPU")
@@ -5176,8 +5608,10 @@ def main(argv) -> int:
     work = ROOT / "build" / "chip_smoke"
     work.mkdir(parents=True, exist_ok=True)
     phase_build()
-    if sp_only or sp_nccl:
-        (phase_sp if sp_only else phase_sp_nccl)(work)
+    if sp_only or sp_nccl or elastic_only or elastic_nccl:
+        {"--sp-only": phase_sp, "--sp-nccl": phase_sp_nccl,
+         "--elastic-only": phase_elastic,
+         "--elastic-nccl": phase_elastic_nccl}[argv[0]](work)
         log(f"[smoke] {argv[0]} done in {time.perf_counter() - t_start:.1f}s")
         log(card)
         return 0
@@ -5236,7 +5670,8 @@ def main(argv) -> int:
              "s2d": phase_s2d(work), "vgg16": phase_vgg16(work),
              "slice5": phase_slice5(work), "legacy": phase_legacy(work),
              "prepare": phase_prepare(work), "golden": phase_golden(work),
-             "ddp": phase_ddp(work), "sp": phase_sp(work)}
+             "ddp": phase_ddp(work), "sp": phase_sp(work),
+             "elastic": phase_elastic(work)}
     counts = {k: sum(p[k] for p in paths.values())
               for k in ("bn", "bn_backward", "context")}
 

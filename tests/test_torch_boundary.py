@@ -60,7 +60,9 @@ def test_port_modules_are_found():
               "can_tpu_torch.cli.collect",
               # the device side of obs
               "can_tpu_torch.obs.costs", "can_tpu_torch.obs.trace",
-              "can_tpu_torch.utils.profiling"):
+              "can_tpu_torch.utils.profiling",
+              # elastic training
+              "can_tpu_torch.parallel.elastic"):
         assert m in mods
     assert (PKG / "csrc" / "context_fused.cu").is_file()
 
