@@ -31,9 +31,17 @@ Clients opt into per-camera stream sessions with
 the one CPU, so N >= 2 is refused there), work stealing, quarantine and
 self-healing, blue/green ``POST /rollout``, and with ``--autoscale-max``
 the autoscaler (``serve/autoscale.py``).  Every flag is validated before
-the weights load, in the JAX CLI's order and with its messages; AOT
-bundles (``--aot-bundle/--aot-bake``) are refused, naming ROADMAP Queue 1
-item 3c.
+the weights load, in the JAX CLI's order and with its messages.
+
+Cold start (fleet mode, as in the JAX CLI): ``--aot-bake D`` writes an AOT
+bundle after warmup (``serve/aot.py``: the serving kernel library built
+for this card and the signature table of every device of the autoscale
+range) and keeps serving from it; ``--aot-bundle D`` on the next start
+loads it — the kernel library from the bundle, no ``nvcc``, every warmup
+launch an AOT hit — and a stale bundle exits ``--aot-bundle refused:
+<axis>``.  ``--compile-cache`` (default ``auto``: ``<checkout>/build/
+can_tpu_torch``) is the kernel build directory (``utils/compile_cache.py``),
+set before any kernel loads; ``off`` builds in a temporary directory.
 
 Telemetry (``obs/``) is off unless asked for: ``--telemetry-dir`` writes
 ``telemetry.host{k}.jsonl`` (``serve.*`` events, request span trees,
@@ -57,8 +65,8 @@ from typing import List, Tuple
 
 import numpy as np
 
+from can_tpu_torch.cli.train import add_compile_cache_arg
 from can_tpu_torch.device import PLATFORMS, NoCudaDeviceError, resolve_device
-from can_tpu_torch.serve.fleet import AOT_MESSAGE
 from can_tpu_torch.serve.quant import SERVE_DTYPES
 
 
@@ -154,11 +162,18 @@ def parse_args(argv=None):
                    help="LEGACY bf16 compute with f32 weights; superseded "
                         "by --serve-dtype bf16, conflict if both given")
     p.add_argument("--aot-bundle", type=str, default="",
-                   help="the JAX CLI's AOT bundle: refused (ROADMAP Queue 1 "
-                        "item 3c)")
+                   help="load an AOT bundle dir (serve/aot.py): the kernel "
+                        "library comes from it (no nvcc) and warmup, "
+                        "resurrection and scale-up launches are AOT hits "
+                        "(no first-seen signature); a stale bundle (weights/"
+                        "dtype/grid/torch/CUDA/card/kernel-source mismatch) "
+                        "is refused with the axis named")
     p.add_argument("--aot-bake", type=str, default="",
-                   help="the JAX CLI's AOT bake: refused (ROADMAP Queue 1 "
-                        "item 3c)")
+                   help="after warmup, write the AOT bundle for EVERY device "
+                        "of the scale universe into this dir (beside the "
+                        "checkpoint is the convention) and keep serving "
+                        "from it: the artifact --aot-bundle loads on the "
+                        "next start")
     p.add_argument("--autoscale-max", type=int, default=0,
                    help="fleet only: the autoscaler's replica ceiling "
                         "(> --replicas; 0 = off)")
@@ -198,6 +213,7 @@ def parse_args(argv=None):
                    choices=list(PLATFORMS),
                    help="default/gpu: the CUDA device (exit non-zero without "
                         "one); cpu: run on the CPU")
+    add_compile_cache_arg(p)
     p.add_argument("--telemetry-dir", type=str, default="",
                    help="write serve.request/serve.batch/serve.reject "
                         "JSONL here (tools/telemetry_report.py summarises)")
@@ -232,8 +248,7 @@ def parse_args(argv=None):
 
 def validate_args(args) -> None:
     """The JAX CLI's flag checks, in its order and with its messages
-    (before the weights load), then the AOT refusal (ROADMAP Queue 1
-    item 3c)."""
+    (before the weights load)."""
     if args.bf16 and args.serve_dtype != "f32":
         raise SystemExit("--bf16 is the legacy f32-params/bf16-compute "
                          "mode; with --serve-dtype use the mode itself "
@@ -262,8 +277,6 @@ def validate_args(args) -> None:
             raise SystemExit(
                 f"--autoscale-min ({args.autoscale_min}) must be in "
                 f"[1, --autoscale-max={args.autoscale_max}]")
-    if args.aot_bundle or args.aot_bake:
-        raise SystemExit(f"--aot-bundle/--aot-bake: {AOT_MESSAGE}")
     if args.max_batch < 1:
         raise SystemExit(f"--max-batch must be >= 1, got {args.max_batch}")
 
@@ -338,11 +351,22 @@ def fleet_devices(platform: str) -> list:
 def build_service(args, telemetry=None):
     """Engine + warmed service from parsed args (no networking) — the seam
     tests and ``chip_smoke.py`` drive; ``main`` adds HTTP around it.
-    ``telemetry``: an object with ``emit(kind, **payload)``, or None."""
+    ``telemetry``: an object with ``emit(kind, **payload)``, or None.
+
+    ``service.startup`` holds the start's stages in seconds — ``kernels``
+    (the build or load before the weights), ``weights``, ``engines`` (the
+    weights on the card; a bundle's check and its library), ``warmup``,
+    ``total``, with ``--aot-bake`` the ``bake`` after them — and the
+    context kernel library's ``kernel_source`` (built, cache or bundle)
+    and ``kernel_seconds``."""
+    import time
+
     import torch
 
     from can_tpu_torch.cli.test import load_params, validate_params_source
-    from can_tpu_torch.serve import CountService, FleetEngine, ServeEngine
+    from can_tpu_torch.cli.train import apply_compile_cache, load_kernels
+    from can_tpu_torch.ops import _build, cuda_context
+    from can_tpu_torch.serve import AotStaleError, CountService, FleetEngine, ServeEngine
     from can_tpu_torch.serve.fleet import check_replicas
 
     try:
@@ -357,19 +381,34 @@ def build_service(args, telemetry=None):
             check_replicas(args.replicas, devices)
         except ValueError as e:
             raise SystemExit(f"[serve] {e}")
+    apply_compile_cache(args, announce=True)
+    t0 = time.perf_counter()
+    if not args.aot_bundle:
+        # the kernel library before the weights: a missing nvcc or a failed
+        # build costs no load (a bundle's come with the fleet, below)
+        load_kernels(device, bn_kernel=False)
+    t1 = time.perf_counter()
     state_dict, _ = load_params(args)
+    t2 = time.perf_counter()
     compute_dtype = torch.bfloat16 if args.bf16 else None
     if devices is not None:
-        engine = FleetEngine(
-            state_dict, replicas=args.replicas, serve_dtype=args.serve_dtype,
-            compute_dtype=compute_dtype, devices=devices,
-            telemetry=telemetry,
-            run_config=_run_config_for(args.checkpoint_dir, args.torch_pth,
-                                       args.params_npz),
-            probe_cooldown_s=args.probe_cooldown_s,
-            watchdog_slack=args.watchdog_slack,
-            watchdog_default_s=args.watchdog_default_s,
-            dispatch_order=args.dispatch_order)
+        try:
+            engine = FleetEngine(
+                state_dict, replicas=args.replicas,
+                serve_dtype=args.serve_dtype,
+                compute_dtype=compute_dtype, devices=devices,
+                telemetry=telemetry,
+                run_config=_run_config_for(args.checkpoint_dir,
+                                           args.torch_pth, args.params_npz),
+                aot_bundle=args.aot_bundle or None,
+                probe_cooldown_s=args.probe_cooldown_s,
+                watchdog_slack=args.watchdog_slack,
+                watchdog_default_s=args.watchdog_default_s,
+                dispatch_order=args.dispatch_order)
+        except AotStaleError as e:
+            # a stale bundle never runs: refuse, name the axis, point at
+            # the re-bake
+            raise SystemExit(f"--aot-bundle refused: {e}")
     else:
         engine = ServeEngine(state_dict, device=device,
                              serve_dtype=args.serve_dtype,
@@ -398,15 +437,45 @@ def build_service(args, telemetry=None):
     # product, at every menu size
     grid = [(h, w) for h in ladder[0] for w in ladder[1]]
     dtypes = (np.float32, np.uint8) if args.u8_warmup else (np.float32,)
-    report = service.warmup(grid, dtypes=dtypes)
+    t3 = time.perf_counter()
+    try:
+        report = service.warmup(grid, dtypes=dtypes)
+    except AotStaleError as e:
+        # warmup re-checks the batch geometry (max_batch, the bucket grid,
+        # the menu) the constructor cannot know yet
+        raise SystemExit(f"--aot-bundle refused: {e}")
+    t4 = time.perf_counter()
     menu = service.stats()["sched"]["menu"]
     where = (f"{args.replicas} replicas on "
              f"{', '.join(str(d) for d in engine.devices)}"
              if devices is not None else str(device))
+    aot = ""
+    if devices is not None and args.aot_bundle:
+        hits = sum(r.engine.aot_hits for r in engine.replicas)
+        aot = f" [AOT: {hits} hits]"
     print(f"[serve] warmup: {report['compiles']} programs over "
           f"{report['shapes']} bucket shapes x menu {tuple(menu)} "
-          f"[{args.serve_dtype}{', bf16 compute' if args.bf16 else ''}] on "
+          f"[{args.serve_dtype}{', bf16 compute' if args.bf16 else ''}]{aot} on "
           f"{where} in {report['seconds']:.1f}s")
+    built = _build.build_info.get(cuda_context.KERNEL)
+    service.startup = startup = dict(
+        kernels=t1 - t0, weights=t2 - t1, engines=t3 - t2, warmup=t4 - t3,
+        total=t4 - t0, kernel_source=built["source"] if built else None,
+        kernel_seconds=built["seconds"] if built else 0.0)
+    if built is not None:
+        print(f"[serve] ready in {startup['total']:.2f}s: kernels "
+              f"{built['source']} {built['seconds']:.2f}s, weights "
+              f"{startup['weights']:.2f}s, engines {startup['engines']:.2f}s, "
+              f"warmup {startup['warmup']:.2f}s")
+    if devices is not None and args.aot_bake:
+        manifest = engine.bake_aot(args.aot_bake)
+        engine.load_aot(args.aot_bake)  # this run heals from it too
+        startup["bake"] = manifest["bake_seconds"]
+        print(f"[serve] AOT bundle: {len(manifest['programs'])} programs "
+              f"over {len({p['device_id'] for p in manifest['programs']})} "
+              f"device(s), {len(manifest['libraries'])} kernel "
+              f"librar{'y' if len(manifest['libraries']) == 1 else 'ies'} -> "
+              f"{args.aot_bake} ({manifest['bake_seconds']:.1f}s)")
     if devices is not None and args.autoscale_max:
         from can_tpu_torch.serve import Autoscaler, AutoscalePolicy
 

@@ -118,8 +118,9 @@ def parse_args(argv=None):
                    default=DEFAULT_LAUNCH_COST_MPX,
                    help="per-launch cost for the planner, in megapixel "
                         "equivalents, or 'auto' to measure this host")
-    from can_tpu_torch.cli.train import add_telemetry_args
+    from can_tpu_torch.cli.train import add_compile_cache_arg, add_telemetry_args
 
+    add_compile_cache_arg(p)
     add_telemetry_args(p)
     return p.parse_args(argv)
 
@@ -210,8 +211,17 @@ def evaluate_checkpoint(args, *, prefetch: Optional[int] = None) -> dict:
     Raises SystemExit on bad arguments and without the asked-for
     device.  Joins the process group a launcher describes and leaves it
     at the end, unless the caller formed it."""
-    from can_tpu_torch.cli.train import validate_incident_args, validate_trace_args
-    from can_tpu_torch.parallel import init_runtime, runtime_active, shutdown_runtime
+    from can_tpu_torch.cli.train import (
+        apply_compile_cache,
+        validate_incident_args,
+        validate_trace_args,
+    )
+    from can_tpu_torch.parallel import (
+        init_runtime,
+        is_main_process,
+        runtime_active,
+        shutdown_runtime,
+    )
 
     roots = resolve_split_roots(args.split, args.image_root, args.gt_root,
                                 args.data_root, flag_stem="")
@@ -230,6 +240,7 @@ def evaluate_checkpoint(args, *, prefetch: Optional[int] = None) -> dict:
     except NoCudaDeviceError as e:
         raise SystemExit(f"[eval] {e}") from None
     try:
+        apply_compile_cache(args, announce=is_main_process())
         if topo["process_count"] % args.sp:
             raise SystemExit(f"[eval] --sp {args.sp} does not divide the "
                              f"process count {topo['process_count']}")

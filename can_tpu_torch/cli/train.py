@@ -52,11 +52,14 @@ a new world, rebuild DDP, the optimizer, the lr schedule and the batcher
 for the new dp, restore the shrink checkpoint and train the interrupted
 epoch's remaining items (one ``elastic.transition`` event).  A cold
 restart with ``--init_checkpoint`` on that directory resumes from the same
-manifest by the same code, to the same weights bit for bit.  Launch
-elastic runs one process per rank with the rendezvous variables set per
-process, not under ``torchrun`` (its agent stops every worker when the
-leaver exits non-zero).  ``--elastic-dir`` with ``--sp > 1`` is refused
-(ROADMAP Queue 1 item 6b).
+manifest by the same code, to the same weights bit for bit.  Under ``--sp
+K`` a replica's K ranks leave together (any of them leaving takes the
+whole replica, whose partners also exit 143) and the survivors re-form at
+dp' = survivors / K with K unchanged, as a JAX host leaves with its sp
+group; a cold restart resumes at the same K.  Launch elastic runs one
+process per rank with the rendezvous variables set per process, not under
+``torchrun`` (its agent stops every worker when the leaver exits
+non-zero).
 
 Telemetry (``obs/``) is off unless asked for, with the JAX CLI's flags:
 ``--telemetry-dir`` writes ``telemetry.host{rank}.jsonl`` (one per
@@ -240,8 +243,50 @@ def parse_args(argv=None):
                    help="default/gpu: the CUDA device cuda:LOCAL_RANK, NCCL "
                         "between processes (exit non-zero without it); cpu: "
                         "run on the CPU, gloo between processes")
+    add_compile_cache_arg(p)
     add_telemetry_args(p)
     return p.parse_args(argv)
+
+
+def add_compile_cache_arg(p) -> None:
+    """``--compile-cache``, shared by the three CLIs (the JAX CLIs' flag)."""
+    p.add_argument("--compile-cache", type=str, default="auto",
+                   help="kernel build cache dir ('auto' = <checkout>/build/"
+                        "can_tpu_torch or $CAN_TPU_COMPILE_CACHE; 'off' "
+                        "builds into a temporary dir of this process): warm "
+                        "restarts load the CUDA kernel libraries instead of "
+                        "running nvcc (utils/compile_cache.py)")
+
+
+def apply_compile_cache(args, *, announce: bool = False):
+    """Point the kernel build at ``--compile-cache`` before any kernel
+    loads; returns the directory in effect, or None (off, or the CPU)."""
+    from can_tpu_torch.utils.compile_cache import enable_compilation_cache
+
+    spec = getattr(args, "compile_cache", "auto")
+    device = "cpu" if getattr(args, "platform", "default") == "cpu" else None
+    try:
+        cache_dir = enable_compilation_cache(None if spec == "auto" else spec,
+                                             device=device)
+    except RuntimeError as e:
+        raise SystemExit(f"--compile-cache: {e}") from None
+    if announce and cache_dir:
+        print(f"[build] kernel build cache at {cache_dir}")
+    return cache_dir
+
+
+def load_kernels(device, *, bn_kernel: bool) -> dict:
+    """Load (building where needed) the kernel libraries a run on
+    ``device`` launches, before its first step: the context kernel, and
+    the BN-moments kernels with ``bn_kernel``.  Nothing on the CPU, where
+    the plain versions run.  Returns ``_build.build_info`` of each."""
+    if torch.device(device).type != "cuda":
+        return {}
+    from can_tpu_torch.ops import _build, cuda_bn, cuda_context
+
+    names = [cuda_context.KERNEL] + ([cuda_bn.KERNEL] if bn_kernel else [])
+    _build.load_kernel_libraries(names)
+    return {n: _build.build_info.get(n, {}) for n in names}
 
 
 def add_telemetry_args(p) -> None:
@@ -344,11 +389,6 @@ def validate(args):
                          "always evaluates)")
     if args.elastic_check_every < 1:
         raise SystemExit("--elastic-check-every must be >= 1")
-    if args.elastic_dir and args.sp > 1:
-        raise SystemExit("--elastic-dir with --sp > 1 is not supported yet "
-                         "(ROADMAP Queue 1 item 6b): one process holds one "
-                         "GPU, so a shrink need not leave a multiple of --sp "
-                         "ranks")
     if args.batch_size < 1 or args.epochs < 1:
         raise SystemExit("--batch-size and --epochs must be >= 1")
     if args.sp < 1:
@@ -375,15 +415,27 @@ def validate(args):
     if args.vgg16_npz and not os.path.isfile(args.vgg16_npz):
         raise SystemExit(f"no such VGG-16 file: {args.vgg16_npz}")
     if args.init_checkpoint:
-        from can_tpu_torch.parallel.elastic import load_manifest
+        from can_tpu_torch.parallel.elastic import load_manifest, manifest_is_live
+        from can_tpu_torch.utils.checkpoint import CheckpointManager
 
         saved = load_run_config(args.init_checkpoint)
+        live = load_manifest(args.init_checkpoint)
         # a preemption before the first epoch's save leaves no epoch
         # checkpoint but a manifest and a shrink checkpoint, whose schedule
         # the guard protects as much (world_size is checked after the
         # world exists, with the elastic allowance)
-        resumable = (has_checkpoint(args.init_checkpoint)
-                     or load_manifest(args.init_checkpoint) is not None)
+        resumable = has_checkpoint(args.init_checkpoint) or live is not None
+        latest = CheckpointManager(args.init_checkpoint).latest_epoch()
+        if (manifest_is_live(live, latest) and not args.allow_config_change
+                and int(live["world_new"].get("sp", 1)) != args.sp):
+            # a transition keeps sp: the manifest explains a new dp, never
+            # rows split another way
+            raise SystemExit(
+                f"config drift: the live elastic manifest in "
+                f"{args.init_checkpoint} re-forms at --sp "
+                f"{live['world_new'].get('sp', 1)}, not {args.sp}: resume with "
+                f"--sp {live['world_new'].get('sp', 1)} (or pass "
+                f"--allow-config-change)")
         if saved is not None and resumable:
             saved = {k: v for k, v in saved.items() if k != "world_size"}
             try:
@@ -552,7 +604,12 @@ def train(args) -> dict:
     schedule's steps over the epochs run), "eval_batches", "epochs" (one
     dict per epoch), "best_mae", "checkpoint_dir", "world_size",
     "generations", "topology" (the last generation's), "timeline" (wall
-    times of the elastic stages this process saw), "exit_code"}``.
+    times: ``start``, ``runtime`` (the process group and the build cache
+    set); the first generation's ``imports``, ``world`` (the mesh),
+    ``datasets``, ``memory`` (the card's memory agreed), ``data``
+    (batchers planned), ``model`` (on the card), ``kernels`` (libraries
+    loaded); the last generation's ``restored`` and ``first_step``; the
+    elastic stages this process saw), "exit_code"}``.
     Raises SystemExit on bad arguments and without the asked-for device.
     Joins the process group a launcher describes (``init_runtime``) and
     leaves it at the end, unless the caller formed it and no elastic
@@ -575,6 +632,10 @@ def train(args) -> dict:
         topo = init_runtime(platform=args.platform)
     except NoCudaDeviceError as e:
         raise SystemExit(f"[train] {e}") from None
+    from can_tpu_torch.parallel import is_main_process
+
+    apply_compile_cache(args, announce=is_main_process())
+    t_runtime = time.time()
     gen0 = generation()
     supervisor = None
     if args.elastic_dir:
@@ -587,7 +648,8 @@ def train(args) -> dict:
                                        check_every=args.elastic_check_every)
         supervisor.install_signal_hook()
     try:
-        return _train(args, roots, topo, trace_window, supervisor, t_start)
+        return _train(args, roots, topo, trace_window, supervisor,
+                      {"start": t_start, "runtime": t_runtime})
     finally:
         if supervisor is not None:
             supervisor.close()
@@ -595,7 +657,7 @@ def train(args) -> dict:
             shutdown_runtime()
 
 
-def _train(args, roots, topo, trace_window, supervisor, t_start: float) -> dict:
+def _train(args, roots, topo, trace_window, supervisor, stamps: dict) -> dict:
     """The generation loop: each iteration is one runtime generation, built
     at the current world; an agreed elastic shrink ends it, and the
     survivors re-form and loop.  Datasets, the item cache, the logger and
@@ -605,12 +667,13 @@ def _train(args, roots, topo, trace_window, supervisor, t_start: float) -> dict:
     import time
 
     from can_tpu_torch import obs
+    from can_tpu_torch.parallel.mesh import forget_meshes
 
     ctx = {"datasets": None, "item_cache": None, "launch_cost_px": None,
            "telemetry": None, "heartbeat": None, "exporter": None,
            "logger": None, "pending_manifest": None, "best": None,
            "generations": 0,
-           "timeline": {"start": t_start}}
+           "timeline": dict(stamps)}
     summary = {"steps": 0, "schedule_steps": 0, "eval_batches": 0,
                "epochs": [], "checkpoint_dir": os.path.abspath(args.checkpoint_dir)}
     try:
@@ -621,7 +684,9 @@ def _train(args, roots, topo, trace_window, supervisor, t_start: float) -> dict:
             if outcome != "reform":
                 break
             # every object of the dying generation (DDP and its group, the
-            # mesh's groups, the model) is gone with _generation's frame
+            # model) is gone with _generation's frame; the mesh cache holds
+            # its spatial and data groups
+            forget_meshes()
             gc.collect()
             topo = supervisor.reform(detail)
             ctx["pending_manifest"] = detail
@@ -687,6 +752,7 @@ def _generation(args, roots, topo, trace_window, supervisor, ctx, summary):
     from can_tpu_torch.utils.logging import MetricLogger
     from can_tpu_torch.utils.profiling import profile_trace
 
+    ctx["timeline"].setdefault("imports", time.time())
     train_img, train_gt, test_img, test_gt = roots
     ctx["generations"] += 1
     first = ctx["generations"] == 1
@@ -704,6 +770,7 @@ def _generation(args, roots, topo, trace_window, supervisor, ctx, summary):
         mesh, host_batch, dp = build_mesh_and_batch(args.batch_size, args.sp)
     except ValueError as e:
         raise SystemExit(f"[train] {e}") from None
+    ctx["timeline"].setdefault("world", time.time())
     sp = mesh.sp
     shards = dp * sp  # cards per launch
     summary["world_size"] = dp
@@ -734,6 +801,7 @@ def _generation(args, roots, topo, trace_window, supervisor, ctx, summary):
             print("[data] prepared store: " + " ".join(
                 f"{split}={'on' if d.prepared_note['active'] else 'off (' + str(d.prepared_note['reason']) + ')'}"
                 for split, d in zip(("train", "test"), ctx["datasets"])))
+    ctx["timeline"].setdefault("datasets", time.time())
     train_ds, test_ds = ctx["datasets"]
     item_cache = ctx["item_cache"]
     num_workers = resolve_num_workers(args.num_workers)
@@ -759,6 +827,7 @@ def _generation(args, roots, topo, trace_window, supervisor, ctx, summary):
     # counts on remat, which the policy turns on where it is needed,
     # unless --remat off.  A launch is split across the dp x sp cards.
     hbm = agreed_device_memory_bytes(device)
+    ctx["timeline"].setdefault("memory", time.time())
     cap = (None if args.no_remnant_batches
            else max_launch_pixels(bf16=args.bf16, hbm_bytes=hbm,
                                   batch_norm=args.syncBN,
@@ -779,6 +848,7 @@ def _generation(args, roots, topo, trace_window, supervisor, ctx, summary):
               + (f"{cap / 1e6:.1f} Mpx" if cap is not None else "none"))
         print_data_line("train", train_batcher, remat_policy)
         print_data_line("test", test_batcher)
+    ctx["timeline"].setdefault("data", time.time())
 
     # the same seed gives the same weights on every process
     model = CANNet(device=device, seed=args.seed, batch_norm=args.syncBN,
@@ -804,6 +874,12 @@ def _generation(args, roots, topo, trace_window, supervisor, ctx, summary):
         if main and first:
             print(f"[init] warm-started parameters from {args.init_torch_pth}")
     model = model.to(memory_format=torch.channels_last)
+    ctx["timeline"].setdefault("model", time.time())
+    built = load_kernels(device, bn_kernel=args.syncBN and args.bn_impl == "kernel")
+    if built and first and main:
+        print("[build] kernels: " + ", ".join(
+            f"{n} {b['source']} in {b['seconds']:.2f} s" for n, b in built.items()))
+    ctx["timeline"].setdefault("kernels", time.time())
     bn_ops = make_bn_ops(args.bn_impl) if args.syncBN else None
     if args.syncBN and main:
         print(f"[model] BatchNorm variant, moments: {args.bn_impl}"
@@ -888,8 +964,9 @@ def _generation(args, roots, topo, trace_window, supervisor, ctx, summary):
             print(f"[elastic] resuming generation {manifest['generation']} "
                   f"transition: epoch {manifest['epoch']} step "
                   f"{manifest['steps_done']}, world {old['processes']}proc/"
-                  f"dp{old['dp']} -> {process_count()}proc/dp{dp}, "
-                  f"{len(remaining)} item(s) remaining ({resumed_from})")
+                  f"dp{old['dp']} -> {process_count()}proc/dp{dp}"
+                  + (f" (sp {sp})" if sp > 1 else "")
+                  + f", {len(remaining)} item(s) remaining ({resumed_from})")
     # after the resume check: an in-place resume reads the saved world first
     save_run_config(args.checkpoint_dir, dict(run_config(args), world_size=dp))
 
@@ -953,7 +1030,7 @@ def _generation(args, roots, topo, trace_window, supervisor, ctx, summary):
                 lr = state.lr()
                 on_step = (supervisor.step_hook(epoch) if supervisor is not None
                            else None)
-                if manifest is not None and epoch == start_epoch:
+                if epoch == start_epoch:
                     on_step = _stamp_first_step(on_step, ctx["timeline"], device)
                 try:
                     state, stats = train_one_epoch(train_step, state, batches,
@@ -1030,8 +1107,7 @@ def _generation(args, roots, topo, trace_window, supervisor, ctx, summary):
 
 def _stamp_first_step(on_step, timeline: dict, device):
     """``on_step`` that also records, once the card has finished it, the
-    wall time of a resumed generation's first step (``timeline
-    ["first_step"]``)."""
+    wall time of a generation's first step (``timeline["first_step"]``)."""
     import time
 
     def hook(step: int) -> None:

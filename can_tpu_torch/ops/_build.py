@@ -3,11 +3,22 @@
 Each ``csrc/*.cu`` file is compiled at first use with ``nvcc`` into a
 shared library with a plain C interface (no PyTorch headers: seconds, not
 minutes) and loaded with ``ctypes``.  Libraries land in
-``<checkout>/build/can_tpu_torch/<name>-<hash>/``, keyed by a hash of the
-source and the flags, so an edited source rebuilds and an unchanged one
-is a cache hit.  ``load_kernel_libraries`` starts one ``nvcc`` per missing
-library, all at once.  A missing ``nvcc`` or a failed build raises; there
-is no fallback.
+``BUILD_ROOT/<name>-<hash>/``, keyed by a hash of the source and the
+flags, so an edited source rebuilds and an unchanged one is a cache hit.
+``BUILD_ROOT`` is the kernel build cache (``utils/compile_cache.py``:
+``<checkout>/build/can_tpu_torch`` unless the CLIs' ``--compile-cache`` or
+``CAN_TPU_COMPILE_CACHE`` move it).  ``load_kernel_libraries`` starts one
+``nvcc`` per missing library, all at once.  A missing ``nvcc`` or a failed
+build raises; there is no fallback.
+
+An AOT bundle (``serve/aot.py``) carries prebuilt libraries, each keyed by
+its source hash (which covers ``NVCC_FLAGS``), arch and CUDA version
+(``library_key``).  ``use_bundled_libraries`` registers them, and a
+registered library loads from the bundle, never through ``nvcc``: one
+that fails to load, or whose key is not this checkout's, raises rather
+than rebuilding (a rebuild would hide the bundle).  ``build_info[name]
+["source"]`` says where each library came from: ``built``, ``cache`` or
+``bundle``.
 
 The package runs from a checkout of the repository (the directory that
 holds ``pyproject.toml`` and the gitignored ``build/``); an installed copy
@@ -28,13 +39,19 @@ from typing import Dict, List, Sequence
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 CHECKOUT = Path(__file__).resolve().parents[2]
-BUILD_ROOT = CHECKOUT / "build" / "can_tpu_torch"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+DEFAULT_BUILD_ROOT = CHECKOUT / "build" / "can_tpu_torch"
+# the kernel build cache; utils/compile_cache.py sets it before any load
+BUILD_ROOT = DEFAULT_BUILD_ROOT
+ARCH = "sm_90a"
+NVCC_FLAGS = ("-gencode", f"arch=compute_90a,code={ARCH}", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
-# name -> {"seconds", "cache_hit", "path", "ptxas"} for the last load
+# name -> {"path", "key", "ptxas"} of a bundle's prebuilt library
+_bundled: Dict[str, dict] = {}
+# name -> {"seconds", "source" ("built" | "cache" | "bundle"), "path",
+# "ptxas"} for the last load
 build_info: Dict[str, dict] = {}
 
 
@@ -56,10 +73,50 @@ def find_nvcc() -> str:
                        "can_tpu_torch are built from source at first use")
 
 
-def _source_hash(src: Path) -> str:
-    h = hashlib.sha256(src.read_bytes())
+def source_hash(name: str) -> str:
+    """The build key of ``csrc/<name>.cu``: a hash of its source and
+    ``NVCC_FLAGS``."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return h.hexdigest()[:16]
+
+
+def library_key(name: str) -> dict:
+    """What a prebuilt library of ``csrc/<name>.cu`` is valid for: its
+    source hash (source and ``NVCC_FLAGS``), the arch it was built for and
+    the CUDA version of the PyTorch that loads it."""
+    import torch
+
+    return {"name": name, "source_sha": source_hash(name),
+            "arch": ARCH, "cuda": torch.version.cuda}
+
+
+def loaded_libraries() -> List[str]:
+    """The names of the kernel libraries this process has loaded."""
+    with _lock:
+        return sorted(_loaded)
+
+
+def use_bundled_libraries(entries: Sequence[dict]) -> None:
+    """Register prebuilt libraries (``{"key": library_key(...), "path",
+    "ptxas"}``): each loads from its path, never through ``nvcc``."""
+    with _lock:
+        for e in entries:
+            _bundled[e["key"]["name"]] = dict(e)
+
+
+def _load_bundled(name: str) -> ctypes.CDLL:
+    entry = _bundled[name]
+    want = library_key(name)
+    if entry["key"] != want:
+        raise RuntimeError(f"the bundled {name} library ({entry['path']}) was "
+                           f"built for {entry['key']}, this checkout needs "
+                           f"{want}: re-bake the bundle (it is not rebuilt)")
+    try:
+        return ctypes.CDLL(str(entry["path"]))
+    except OSError as e:
+        raise RuntimeError(f"the bundled {name} library {entry['path']} failed "
+                           f"to load ({e}); it is not rebuilt") from e
 
 
 def load_kernel_libraries(names: Sequence[str]) -> List[ctypes.CDLL]:
@@ -68,17 +125,28 @@ def load_kernel_libraries(names: Sequence[str]) -> List[ctypes.CDLL]:
     CDLLs in order.  Thread-safe; a library loaded once in the process is
     returned as it is."""
     with _lock:
-        todo = [n for n in dict.fromkeys(names) if n not in _loaded]
+        t0 = time.perf_counter()
+        todo = []
+        for n in dict.fromkeys(names):
+            if n in _loaded:
+                continue
+            if n in _bundled:
+                _loaded[n] = _load_bundled(n)
+                build_info[n] = {"seconds": time.perf_counter() - t0,
+                                 "source": "bundle",
+                                 "path": str(_bundled[n]["path"]),
+                                 "ptxas": _bundled[n].get("ptxas", "")}
+            else:
+                todo.append(n)
         if todo and not (CHECKOUT / "pyproject.toml").is_file():
             raise RuntimeError(
                 f"can_tpu_torch builds its CUDA kernels into <checkout>/build "
                 f"and runs from a checkout of the repository; {CHECKOUT} is "
                 f"not one (no pyproject.toml)")
-        t0 = time.perf_counter()
         jobs = {}
         for name in todo:
             src = CSRC / f"{name}.cu"
-            out_dir = BUILD_ROOT / f"{name}-{_source_hash(src)}"
+            out_dir = BUILD_ROOT / f"{name}-{source_hash(name)}"
             so = out_dir / f"lib{name}.so"
             job = {"src": src, "out_dir": out_dir, "so": so,
                    "hit": so.is_file(), "proc": None}
@@ -106,7 +174,8 @@ def load_kernel_libraries(names: Sequence[str]) -> List[ctypes.CDLL]:
                 ptxas = (job["out_dir"] / "ptxas.log").read_text()
             _loaded[name] = ctypes.CDLL(str(job["so"]))
             build_info[name] = {"seconds": time.perf_counter() - t0,
-                                "cache_hit": job["hit"], "path": str(job["so"]),
+                                "source": "cache" if job["hit"] else "built",
+                                "path": str(job["so"]),
                                 "ptxas": ptxas}
         if failed:
             raise RuntimeError("\n".join(failed))

@@ -37,6 +37,14 @@ choreography:
    ``elastic.transition`` event.  A cold restart reads the same manifest
    and runs the same resume, so the two end bitwise equal.
 
+Under spatial parallelism (``sp > 1``) a replica is ``sp`` processes
+(``parallel/mesh.py``: ``rank = d * sp + s``), as a JAX host holds its sp
+group.  When any rank of replica ``d`` leaves, all ``sp`` ranks of ``d``
+leave with it (``replica_leavers``, applied to the agreed set before
+``plan_reformation``), and the survivors re-form at ``(dp - replicas
+lost, sp)``: ``sp`` never changes, and a leaver set that takes every
+replica ends the job.
+
 Launch elastic jobs one process per rank with the rendezvous variables
 set per process (``RANK``/``WORLD_SIZE``/``MASTER_ADDR``/``MASTER_PORT``,
 ``COORDINATOR_ADDRESS``, or ``srun``), never under ``torchrun``: its
@@ -136,6 +144,21 @@ def remaining_items(manifest: dict, dataset_size: int) -> List[int]:
 
 
 # -- re-formation planning (pure) -----------------------------------------
+def replica_leavers(leavers: Iterable[int], *, n_processes: int,
+                    sp: int = 1) -> Set[int]:
+    """The agreed leaver set widened to whole replicas: every rank ``d * sp
+    + s`` of a replica ``d`` that holds a leaver.  The counterpart of a JAX
+    host leaving with its whole sp group; the identity at ``sp == 1``."""
+    if sp < 1 or n_processes % sp:
+        raise ValueError(f"sp={sp} does not divide the {n_processes}-process "
+                         f"world")
+    out: Set[int] = set()
+    for r in leavers:
+        d = int(r) // sp
+        out.update(range(d * sp, (d + 1) * sp))
+    return out
+
+
 def plan_reformation(*, n_processes: int, leavers: Iterable[int],
                      process_index: int) -> dict:
     """Who stays, and at what new rank: the old ranks minus the leavers,
@@ -384,7 +407,9 @@ class ElasticSupervisor:
 
         schedule: the interrupted epoch's global schedule (its first
         ``steps_done`` launches are the consumed items).
-        dp/sp/batch_size: the dying world's mesh and per-replica batch.
+        dp/sp/batch_size: the dying world's mesh and per-replica batch;
+        under ``sp > 1`` the agreed leavers widen to their whole replicas
+        (``replica_leavers``), whose every rank then leaves.
         prior_consumed: items an earlier transition of the same epoch
         already covered (a second shrink while training the remainder)."""
         from can_tpu_torch.utils.checkpoint import CheckpointManager
@@ -393,12 +418,16 @@ class ElasticSupervisor:
         n = runtime.process_count()
         rank = runtime.process_index()
         rank_map = self._rank_map(n)
-        plan = plan_reformation(n_processes=n, leavers=interrupt.leavers,
+        sp = max(int(sp), 1)
+        leavers = replica_leavers(interrupt.leavers, n_processes=n, sp=sp)
+        plan = plan_reformation(n_processes=n, leavers=leavers,
                                 process_index=rank)
         new_procs = plan["new_num_processes"]
-        # one GPU per process: the shrunk world's devices are its processes
-        new_devices = max(new_procs, 1)
-        new_dp = max(new_devices // max(sp, 1), 1)
+        # one GPU per process and sp processes a replica: the shrunk world's
+        # devices are its processes (JAX's host holds sp devices, and its
+        # count of at least one host is this count of at least sp)
+        new_devices = max(new_procs, sp)
+        new_dp = max(new_devices // sp, 1)
         manifest = {
             "schema": MANIFEST_SCHEMA,
             "ts": self._clock(),
@@ -410,9 +439,9 @@ class ElasticSupervisor:
                 set(int(i) for i in prior_consumed)
                 | set(consumed_items(schedule, interrupt.steps_done))),
             "reason": interrupt.reason,
-            "leavers": sorted(interrupt.leavers),
+            "leavers": sorted(leavers),
             "survivors": plan["survivors"],
-            "leaver_hosts": sorted(rank_map[r] for r in interrupt.leavers),
+            "leaver_hosts": sorted(rank_map[r] for r in leavers),
             "survivor_hosts": [rank_map[s] for s in plan["survivors"]],
             "world_old": {"processes": n, "dp": int(dp), "sp": int(sp),
                           "devices": int(dp) * int(sp),

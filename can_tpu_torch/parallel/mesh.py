@@ -91,6 +91,14 @@ def make_mesh(*, dp: Optional[int] = None, sp: int = 1) -> Mesh:
     return mesh
 
 
+def forget_meshes() -> None:
+    """Drop every cached mesh and with it its groups: an elastic survivor
+    calls it before the old generation's groups are destroyed, and the
+    next ``make_mesh`` builds the new generation's (dp', sp) mesh, its
+    groups created in the same order on every rank."""
+    _MESHES.clear()
+
+
 def _build(dp: int, sp: int) -> Mesh:
     world = process_group()
     rank = dist.get_rank() if world is not None else 0

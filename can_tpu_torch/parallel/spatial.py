@@ -51,6 +51,14 @@ Both run on H100s: two gloo ranks sharing one card
 (``python3 chip_smoke.py``'s ``[sp]``) and one NCCL rank per card on a
 4-GPU machine (``python3 chip_smoke.py --sp-nccl``).
 
+Elastic training (``parallel/elastic.py``) keeps ``sp`` and shrinks dp by
+whole replicas.  The steps hold the world group, the mesh's spatial and
+data groups and the halo transport they were built with, and nothing here
+outlives them: the train CLI builds each generation's steps anew at (dp',
+sp) on its mesh, after restoring the shrink checkpoint into a model made
+on the card, so SyncBN sums over the dp' x sp world and each halo goes to
+the neighbours of the new spatial group.
+
 ``STATS`` counts the halo exchanges, their bytes sent and the pooled
 all-reduces of this process, forward and backward, since the last
 ``reset_stats()``.

@@ -1,9 +1,8 @@
 """can_tpu_torch.serve — online CANNet counting: bucketed micro-batches
 priced by the scheduling core, deadlines, backpressure, per-stream
 sessions, f32/bf16/int8 weights, HTTP, and the serving fleet — replicas
-with work stealing, blue/green rollout, self-healing and the autoscaler
-(counterpart of ``can_tpu/serve``; AOT bundles wait for ROADMAP Queue 1
-item 3c)::
+with work stealing, blue/green rollout, self-healing and the autoscaler,
+and AOT bundles for its cold start (counterpart of ``can_tpu/serve``)::
 
     engine = ServeEngine(state_dict, device=resolve_device("default"))
     ladder = ((384, 512, 768), (512, 768, 1024))
@@ -18,12 +17,15 @@ item 3c)::
     fleet = FleetEngine(state_dict, replicas=2)   # one replica per GPU
     svc = CountService(fleet, max_batch=8, bucket_ladder=ladder)
     svc.warmup(...); svc.start(); svc.rollout(new_state_dict)
+    fleet.bake_aot("ckpt/aot")                    # then, in a new process:
+    FleetEngine(state_dict, replicas=2, aot_bundle="ckpt/aot")
 
 Guarantees: every submitted request resolves or is rejected with a typed
 reason; the engine's signature count is (bucket, menu size, dtype),
 all paid in ``warmup`` (per replica in a fleet).
 """
 
+from can_tpu_torch.serve.aot import AotBundle, AotStaleError, load_aot_bundle
 from can_tpu_torch.serve.autoscale import Autoscaler, AutoscalePolicy
 from can_tpu_torch.serve.batcher import MicroBatcher
 from can_tpu_torch.serve.engine import ServeEngine, tree_signature
@@ -77,6 +79,7 @@ from can_tpu_torch.serve.streams import (
 )
 
 __all__ = [
+    "AotBundle", "AotStaleError", "load_aot_bundle",
     "Autoscaler", "AutoscalePolicy", "FleetClosedError", "FleetEngine",
     "REPLICA_ACTIVE", "REPLICA_DRAINING", "REPLICA_QUARANTINED",
     "REPLICA_WEDGED", "ReplicaWedgedError", "priced_deadline_s",

@@ -20,7 +20,14 @@ batches, the CANNet forward, then the masked per-image count reduction
 * ``swap_params()``: replace the served weights with a tree of the same
   signature (names, shapes, dtypes) — every warmed shape serves the new
   weights with no new signature; a mismatched tree is refused;
-* ``release_buffers()``: drop the device weights.
+* ``release_buffers()``: drop the device weights;
+* ``aot_programs``: an AOT bundle's signature table for this device
+  (``serve/aot.py``): a batch on a bundled signature is an AOT hit
+  (``aot_hits``), not a first-seen signature — ``compile_count`` and the
+  ``compile`` event stay untouched, ``last_batch_compiled`` is False and
+  ``is_warm`` True, as a loaded executable is in the JAX engine.  The
+  launch itself is the same (same weights, same kernels), so counts are
+  bitwise the warm path's.
 
 With a ``telemetry`` bus the engine emits the reference's events: one
 ``compile`` per new batch signature (``obs.RecompileTracker``'s payload:
@@ -99,12 +106,17 @@ class ServeEngine:
     name: the engine's program name; a fleet names each replica
       incarnation apart (``f"{name}_r{k}"``), and stream pins hold it.
     telemetry: optional bus for ``compile`` and ``serve.warmup`` events.
+    aot_programs: ``{(image shape, dtype str): record}`` of an AOT bundle
+      (``AotBundle.programs_for(device)``), or None.
     """
 
     def __init__(self, state_dict, *, device, serve_dtype: str = "f32",
                  compute_dtype=None, quantized: bool = False, ds: int = 8,
-                 name: str = "serve_predict", telemetry=None):
+                 name: str = "serve_predict", telemetry=None,
+                 aot_programs=None):
         self.name = name
+        self._aot = dict(aot_programs) if aot_programs else {}
+        self.aot_hits = 0
         self.telemetry = telemetry
         self.device = torch.device(device)
         self.serve_dtype = serve_dtype
@@ -154,9 +166,10 @@ class ServeEngine:
         return self._last_compiled
 
     def is_warm(self, batch: Batch) -> bool:
-        """True when ``batch``'s (shape, dtype) signature has run here."""
-        return (tuple(batch.image.shape),
-                str(batch.image.dtype)) in self._signatures
+        """True when ``batch``'s (shape, dtype) signature has run here or
+        is bundled (an AOT hit)."""
+        sig = (tuple(batch.image.shape), str(batch.image.dtype))
+        return sig in self._aot or sig in self._signatures
 
     def forward(self, image: torch.Tensor) -> torch.Tensor:
         """The served forward of a normalised device batch (NHWC)."""
@@ -179,9 +192,14 @@ class ServeEngine:
             raise RuntimeError("serve engine buffers released — build a "
                                "fresh engine to serve again")
         sig = (tuple(batch.image.shape), str(batch.image.dtype))
-        first = sig not in self._signatures
+        if sig in self._aot:
+            # a bundled signature: no first-seen signature, no compile event
+            self.aot_hits += 1
+            first = False
+        else:
+            first = sig not in self._signatures
+            self._signatures.add(sig)
         self._last_compiled = first
-        self._signatures.add(sig)
         # a new signature's first call runs inside the cost ledger's
         # counting scope when one rides the bus (obs/costs.py)
         ledger = (getattr(self.telemetry, "ledger", None)
@@ -237,10 +255,11 @@ class ServeEngine:
             self.params = params
 
     def release_buffers(self) -> None:
-        """Drop the device-resident weights (idempotent); a released
-        engine refuses ``predict_batch``."""
+        """Drop the device-resident weights and the AOT table (idempotent);
+        a released engine refuses ``predict_batch``."""
         self.model = None
         self.params = None
+        self._aot = {}
         self.released = True
         gc.collect()
         if self.device.type == "cuda":

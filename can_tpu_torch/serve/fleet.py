@@ -72,11 +72,17 @@ event kinds and payloads).
   every ``release_buffers`` (``torch.cuda.empty_cache`` acts on the
   current device), runs inside ``_device_guard(device)``.
 
-AOT bundles (``aot_bundle=``, ``bake_aot``, ``load_aot``) serialise
-compiled XLA executables in JAX; the port compiles no program, so they
-raise ``NotImplementedError`` (ROADMAP Queue 1 item 3c) and scale and
-resurrection reports carry ``aot_hits: 0``.  ``telemetry``: an object
-with ``emit(kind, **payload)``, or None.
+* **AOT bundles** (``serve/aot.py``) — ``aot_bundle=`` (a path or an
+  ``AotBundle``) is checked at construction and again at ``warmup``
+  against the bucket grid, ``max_batch`` and the size menu (a bundle that
+  does not cover the grid is refused, never partly used); every replica
+  engine, resurrected and scaled-up ones included, takes its device's
+  signature table and the bundle's kernel libraries, and the resurrection
+  and scale reports carry its ``aot_hits``.  ``bake_aot(out_dir,
+  devices=)`` writes a bundle for every device of the scale universe;
+  ``load_aot(bundle)`` attaches one to a running fleet.
+
+``telemetry``: an object with ``emit(kind, **payload)``, or None.
 """
 
 from __future__ import annotations
@@ -95,6 +101,7 @@ from can_tpu_torch.data.batching import pad_batch
 from can_tpu_torch.device import NoCudaDeviceError
 from can_tpu_torch.obs import supervised_loop
 from can_tpu_torch.sched import normalize_sizes, pick_work
+from can_tpu_torch.serve.aot import bake_aot_bundle, load_aot_bundle, signature_sha
 from can_tpu_torch.serve.engine import ServeEngine, tree_signature
 from can_tpu_torch.serve.quant import host_tree, quantize_tree
 from can_tpu_torch.serve.queue import REJECT_DEADLINE, REJECT_ERROR
@@ -114,12 +121,6 @@ STARVATION_AGE_S = 2.0
 DEADLINE_PRESSURE_S = 0.5
 PROBE_BACKOFF_FACTOR = 2.0
 WATCHDOG_FLOOR_S = 1.0
-
-AOT_MESSAGE = ("AOT bundles serialise compiled XLA executables; the port "
-               "compiles no program to serialise, so --aot-bundle/--aot-bake "
-               "(aot_bundle=, bake_aot, load_aot) wait for ROADMAP Queue 1 "
-               "item 3c")
-
 
 class FleetClosedError(RuntimeError):
     """Work submitted after the fleet shut down."""
@@ -286,8 +287,6 @@ class FleetEngine:
                  watchdog_slack: float = 10.0,
                  watchdog_default_s: float = 30.0,
                  dispatch_order: str = "priced"):
-        if aot_bundle is not None:
-            raise NotImplementedError(AOT_MESSAGE)
         if dispatch_order not in ("priced", "fifo"):
             raise ValueError(f"unknown dispatch_order {dispatch_order!r} "
                              f"(priced | fifo)")
@@ -336,10 +335,18 @@ class FleetEngine:
         # replica, resurrection and scale-up stages from — a dead replica
         # costs zero device memory, not "zero plus a pinned copy"
         self._host_q = host_tree(quantize_tree(state_dict, serve_dtype))
+        self._sig_sha = signature_sha(self._host_q)
+        if isinstance(aot_bundle, str):
+            aot_bundle = load_aot_bundle(aot_bundle)
+        if aot_bundle is not None:
+            aot_bundle.check(sig_sha=self._sig_sha, serve_dtype=serve_dtype,
+                             ds=self.ds, device=devices[0])
+        self._aot = aot_bundle
         self.replicas: List[ReplicaState] = []
         for k, dev in enumerate(self.devices):
             with _device_guard(dev):
-                engine = self._engine(dev, f"{name}_r{k}")
+                engine = self._engine(dev, f"{name}_r{k}",
+                                      aot_programs=self._aot_programs(dev))
             self.replicas.append(ReplicaState(k, k, dev, engine))
         # per-slot incarnation counters: a resurrected replica's engine
         # gets a DISTINCT program name (f"{name}_r{k}i{n}"), so its
@@ -372,12 +379,18 @@ class FleetEngine:
         # deadline_ts (the service's, injectable for fake-clock tests)
         self._clock = time.monotonic
 
-    def _engine(self, device, name: str,
-                tree: Optional[dict] = None) -> ServeEngine:
+    def _engine(self, device, name: str, tree: Optional[dict] = None,
+                aot_programs=None) -> ServeEngine:
         return ServeEngine(self._host_q if tree is None else tree,
                            device=device, serve_dtype=self.serve_dtype,
                            compute_dtype=self._compute_dtype, ds=self.ds,
-                           quantized=True, name=name, telemetry=self.telemetry)
+                           quantized=True, name=name, telemetry=self.telemetry,
+                           aot_programs=aot_programs)
+
+    def _aot_programs(self, device):
+        """The loaded bundle's signature table for ``device`` (replica
+        engines take it; staging engines none, as in JAX)."""
+        return self._aot.programs_for(device) if self._aot is not None else None
 
     def _emit(self, kind: str, **payload) -> None:
         if self.telemetry is not None:
@@ -417,6 +430,14 @@ class FleetEngine:
         sizes = normalize_sizes(max_batch, sizes)
         self._warmup_spec = (sorted(set(map(tuple, bucket_shapes))),
                              int(max_batch), tuple(dtypes), sizes)
+        if self._aot is not None:
+            # the bundle must cover THIS grid at THIS batch geometry: a
+            # partial hit would hide first-seen signatures behind "AOT"
+            self._aot.check(sig_sha=self._sig_sha,
+                            serve_dtype=self.serve_dtype, ds=self.ds,
+                            max_batch=max_batch,
+                            bucket_shapes=self._warmup_spec[0],
+                            batch_sizes=sizes, device=self._devices_all[0])
         t0 = time.perf_counter()
         shapes = compiles = 0
         for r in self.replicas:
@@ -838,7 +859,8 @@ class FleetEngine:
             self._incarnations[index] = n + 1
         name = (f"{self.name}_r{index}" if n == 0
                 else f"{self.name}_r{index}i{n}")
-        return self._engine(device, name, tree)
+        return self._engine(device, name, tree,
+                            aot_programs=self._aot_programs(device))
 
     def _probe_worker(self, replica: ReplicaState, token: int) -> None:
         """One probation attempt, on its own thread: stage current-
@@ -918,7 +940,8 @@ class FleetEngine:
             self._emit("fleet.resurrect", replica=fresh.index,
                        generation=gen, live=self.live_replicas(),
                        seconds=round(time.perf_counter() - t0, 3),
-                       warmup_compiles=rep["compiles"], aot_hits=0,
+                       warmup_compiles=rep["compiles"],
+                       aot_hits=engine.aot_hits,
                        probe_failures_before=replica.probe_failures)
             self._emit("fleet.replica", **fresh.snapshot())
 
@@ -994,7 +1017,7 @@ class FleetEngine:
                           "time_to_first_ready_s":
                               round(time.perf_counter() - t0, 3),
                           "warmup_compiles": rep["compiles"],
-                          "aot_hits": 0}
+                          "aot_hits": engine.aot_hits}
                 self._emit("fleet.scale", **report)
                 self._emit("fleet.replica", **fresh.snapshot())
                 return report
@@ -1036,12 +1059,68 @@ class FleetEngine:
             self._emit("fleet.scale", **report)
             return report
 
-    # -- AOT warm start: ROADMAP Queue 1 item 3c --------------------------
+    # -- AOT warm start ----------------------------------------------------
     def bake_aot(self, out_dir: str, *, devices=None) -> dict:
-        raise NotImplementedError(AOT_MESSAGE)
+        """Write an AOT bundle (``serve/aot.py``) of the warmed (bucket,
+        size, dtype) grid for every device of the scale universe (default;
+        a device listed in several slots once) at ``out_dir``: what
+        resurrection, scale-up and a fresh process load.  Live replicas'
+        engines bake on their devices; a device without one gets a
+        staging engine whose weights leave with it."""
+        with self._rollout_lock:
+            if self._warmup_spec is None:
+                raise RuntimeError("bake_aot before warmup(): no "
+                                   "(bucket, dtype) grid to bake")
+            shapes, max_batch, dtypes, sizes = self._warmup_spec
+            devices = list(dict.fromkeys(
+                torch.device(d) for d in (devices if devices is not None
+                                          else self._devices_all)))
+            by_dev = {}
+            for r in self.replicas:
+                if r.state == REPLICA_ACTIVE:
+                    by_dev.setdefault(r.device, r)
+            engines, staged, locks = [], [], []
+            for dev in devices:
+                r = by_dev.get(dev)
+                if r is not None:
+                    engines.append(r.engine)
+                    locks.append(r.lock)
+                else:
+                    with _device_guard(dev):
+                        eng = self._engine(dev, f"{self.name}_bake_d{dev}")
+                    engines.append(eng)
+                    staged.append(eng)
+            try:
+                with contextlib.ExitStack() as stack:
+                    # a replica's engine bakes between two of its launches
+                    for lock in locks:
+                        stack.enter_context(lock)
+                    return bake_aot_bundle(
+                        out_dir, engines=engines, bucket_shapes=shapes,
+                        max_batch=max_batch, dtypes=dtypes, ds=self.ds,
+                        serve_dtype=self.serve_dtype, sig_sha=self._sig_sha,
+                        generation=self.generation,
+                        telemetry=self.telemetry, batch_sizes=sizes)
+            finally:
+                for eng in staged:
+                    with _device_guard(eng.device):
+                        eng.release_buffers()
 
     def load_aot(self, bundle) -> None:
-        raise NotImplementedError(AOT_MESSAGE)
+        """Attach a bundle (path or ``AotBundle``) for the recovery and
+        scale paths; staleness-checked against the serving tree and, once
+        warmed, the grid."""
+        if isinstance(bundle, str):
+            bundle = load_aot_bundle(bundle)
+        geometry = {}
+        if self._warmup_spec is not None:
+            shapes, max_batch, _, sizes = self._warmup_spec
+            geometry = dict(max_batch=max_batch, bucket_shapes=shapes,
+                            batch_sizes=sizes)
+        bundle.check(sig_sha=self._sig_sha, serve_dtype=self.serve_dtype,
+                     ds=self.ds, device=self._devices_all[0], **geometry)
+        with self._rollout_lock:
+            self._aot = bundle
 
     # -- health -----------------------------------------------------------
     def healthz(self) -> dict:

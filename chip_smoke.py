@@ -210,6 +210,28 @@ slice 11, right after fleet:
               ``/metrics`` after the close ``can_tpu_mfu_weighted``; the
               same CLI at ``--serve-dtype bf16`` (8 requests) prices its
               ledger at the bf16 peak, and its MFU at close lies in (0, 1);
+slice 14, right after obs:
+   aot      — the cold start of a serving process, each a fresh
+              interpreter running the serve CLI's path (``parse_args`` ->
+              ``build_service``, fleet mode: two replicas on the one card,
+              the default ladder, --max-batch 8, f32, the He weights),
+              one after another: with an empty ``--compile-cache`` (nvcc
+              builds the kernel library), with that cache warm and
+              ``--aot-bake``, and with an empty cache and ``--aot-bundle``
+              (nvcc made to fail).  Each start split: the interpreter,
+              ``import torch``, ``torch.cuda.is_available()``, the
+              package's imports, the CUDA context, the cuDNN and cuBLAS
+              handles, the kernel
+              library, the weights (file read, ``torch.load``, check),
+              the engines, the warmup (its first launches against the
+              same grid warmed again), the first answered request.  The
+              bundle process takes the library from the bundle with an
+              empty cache, every warmup launch is an AOT hit (no
+              first-seen signature), its counts of 8 requests are bitwise
+              the cold and warm processes'; bundles stale on
+              torch_version, kernel_sources and max_batch are refused
+              naming the axis; time to first ready reported for the cold
+              build, the warm cache and the bundle;
 slice 12, right after phase 4's training:
    obs_train — the device side of telemetry on the train and eval CLIs:
               80 synthetic train images, 40 at 576x768 and 40 at 512x640
@@ -281,7 +303,17 @@ slice 13, after sp:
               step, context one a step and eval batch); the stages' times
               (SIGTERM, agreement, shrink checkpoint, barrier,
               re-formation, restore, first step) against the cold leg's
-              launch to first step;
+              launch to first step, split (the interpreter, torch, the
+              device query, the imports, the CUDA context, the CLI's validation
+              and runtime, its loop's imports, the mesh, the datasets, the
+              memory agreement, the plan, the model, the kernel libraries,
+              the restore, the first step).  Slice 14 adds, side by side
+              with those, four gloo ranks on cuda:0 at dp=2 x sp=2
+              (``--sp 2``), rank 1 SIGTERMed: ranks 0 and 1 (its
+              replica) exit 143, ranks 2 and 3 re-form at (1, 2) and equal
+              a cold restart at two ranks bitwise, f32 and bf16, by the
+              same gates (launches per rank exact: BN 16 a step, context
+              one a step and eval batch);
 9. report   — the card's name and power limit (nvidia-smi's own line), a
               ``kernels`` JSON line,
               and last the result line ``{"ok": true, "device": {...}}``.
@@ -296,12 +328,15 @@ build and the sp steps over NCCL with one rank per GPU (dp=1 x sp=2 on two,
 with step times, the halo replayed alone and the UCF-scale image; dp=2 x
 sp=2 on four), each against world 1 on cuda:0 by the sp phase's gates.
 ``python3 chip_smoke.py --elastic-only`` runs the build and the elastic
-phase alone; ``python3 chip_smoke.py --elastic-nccl``, on a machine with 4
-GPUs, runs the build, DDP with SyncBN over NCCL at world 2 and 4 (one rank
-per GPU, each world twice) against world 1 on cuda:0 by the ddp phase's
-gates with the step's ms at each world, and the train CLI's shrink from 4
-NCCL ranks to 3 with rank 0 (the checkpoint writer and coordinator)
-leaving, bitwise equal to a cold restart at world 3 on three cards.  Ranks
+phase alone, ``--aot-only`` the build and the aot phase; ``python3
+chip_smoke.py --elastic-nccl``, on a machine with 4 GPUs, runs the build,
+DDP with SyncBN over NCCL at world 2 and 4 (one rank per GPU, each world
+twice) against world 1 on cuda:0 by the ddp phase's gates with the step's
+ms at each world, the train CLI's shrink from 4 NCCL ranks to 3 with rank
+0 (the checkpoint writer and coordinator) leaving, bitwise equal to a cold
+restart at world 3 on three cards, and the shrink from dp=2 x sp=2 to
+(1, 2) with rank 1 leaving (rank 0 with it), bitwise equal to a cold
+(1, 2) world on two cards.  Ranks
 are started one process each with their rendezvous variables, never by
 torchrun, whose agent would stop the survivors when the leaver exits 143.
 None of these prints a result line.
@@ -330,6 +365,11 @@ import urllib.request
 from pathlib import Path
 
 import numpy as np
+
+# the cold-start split's stamps: this script's first line, torch imported,
+# torch.cuda.is_available() answered (main sets the last two)
+T_SCRIPT = time.time()
+T_TORCH = T_AVAIL = None
 
 ROOT = Path(__file__).resolve().parent
 SEED = 0
@@ -498,7 +538,7 @@ def phase_build():
     for name in (cuda_context.KERNEL, cuda_bn.KERNEL):
         info = _build.build_info[name]
         log(f"[build] {name}: {info['seconds']:.2f}s "
-            f"cache_hit={info['cache_hit']} -> {info['path']}")
+            f"{info['source']} -> {info['path']}")
         for line in info["ptxas"].splitlines():
             if "registers" in line or "spill" in line:
                 log(f"[build]   ptxas: {line.strip()}")
@@ -2232,6 +2272,276 @@ def obs_window_b(pth: Path, sd, work: Path, images, count,
         f"{live}; context_fused launches in the fleet windows {launches} = "
         f"predicts")
     return launches
+
+
+# [aot]: the cold start of a serving process and the AOT bundle.  Each
+# process is the serve CLI's path (``cli.serve.parse_args`` ->
+# ``build_service``) in a fresh interpreter (``--ddp-worker`` with a
+# "coldserve" spec), fleet mode with two replicas on the one card (the
+# universe [cuda:0] x 2: --aot-bundle is fleet-only, as in JAX), started
+# one after another so that none shares the machine with another:
+#   cold   --compile-cache <empty dir>            (nvcc builds the library)
+#   warm   --compile-cache <that dir> --aot-bake  (a cache hit; then bakes)
+#   bundle --compile-cache <empty dir> --aot-bundle  (nvcc is made to fail:
+#          the library must come from the bundle)
+AOT_REPLICAS = 2
+AOT_IMAGES = ((300, 400), (384, 512), (500, 700), (512, 768), (640, 900),
+              (768, 1024), (450, 1000), (700, 500))
+
+
+def aot_images() -> list:
+    from can_tpu_torch.serve import prepare_image
+
+    rng = np.random.default_rng(SEED + 7)
+    return [prepare_image((rng.uniform(0, 1, (h, w, 3)) * 255).astype(np.uint8))
+            for h, w in AOT_IMAGES]
+
+
+def coldserve_worker(spec: dict) -> int:
+    """One fresh serve CLI process of [aot]: the stamps of its start (the
+    interpreter, torch, the device query, the package's imports, the CUDA
+    context, the cuDNN and cuBLAS handles, then ``build_service``'s own
+    stages to ready), the first answered request, the counts of
+    ``aot_images`` one at a time, the warmup's launches, and the grid
+    warmed again (its steady launches)."""
+    t = {"launch": spec["t_launch"], "script": T_SCRIPT, "torch": T_TORCH,
+         "device_query": T_AVAIL}
+    import torch
+
+    from can_tpu_torch.cli import serve as serve_cli
+    from can_tpu_torch.ops import _build
+    from can_tpu_torch.ops import cuda_context as cc
+
+    t["imports"] = time.time()
+    dev = torch.device("cuda", 0)
+    torch.zeros(1, device=dev)
+    torch.cuda.synchronize(dev)
+    t["context"] = time.time()
+    x = torch.zeros(1, 8, 8, 8, device=dev)
+    torch.nn.functional.conv2d(x, torch.zeros(8, 8, 3, 3, device=dev), padding=1)
+    torch.cuda.synchronize(dev)
+    t["cudnn"] = time.time()
+    torch.zeros(8, 8, device=dev) @ torch.zeros(8, 8, device=dev)
+    torch.cuda.synchronize(dev)
+    t["cublas"] = time.time()
+    if spec.get("no_nvcc"):
+        def refuse():
+            raise RuntimeError("nvcc ran in a process that serves from a bundle")
+        _build.find_nvcc = refuse
+    # the fleet's universe: the one card, once per replica slot
+    serve_cli.fleet_devices = lambda platform: [dev] * AOT_REPLICAS
+    args = serve_cli.parse_args(spec["argv"])
+    # the weights' stage split: the file's bytes, torch.load, the check
+    import io
+
+    from can_tpu_torch.cli import test as eval_cli
+    from can_tpu_torch.utils import torch_import
+
+    def timed_load(a):
+        t0 = time.perf_counter()
+        raw = Path(a.torch_pth).read_bytes()
+        t1 = time.perf_counter()
+        obj = torch.load(io.BytesIO(raw), map_location="cpu", weights_only=True)
+        t2 = time.perf_counter()
+        sd = torch_import.check_state_dict(obj)
+        t["weights_split"] = {"read": t1 - t0, "torch.load": t2 - t1,
+                              "check": time.perf_counter() - t2, "bytes": len(raw)}
+        return sd, None
+
+    eval_cli.load_params = timed_load
+    cc.reset_launches()  # the main path starts here
+    service = serve_cli.build_service(args)
+    t["ready"] = time.time()
+    warm_launches = cc.LAUNCHES
+    fleet = service.engine
+    out = {"startup": service.startup,
+           "build_info": {n: {"source": b["source"], "seconds": b["seconds"]}
+                          for n, b in _build.build_info.items()},
+           "compile_count": fleet.compile_count,
+           "warm_aot_hits": sum(r.engine.aot_hits for r in fleet.replicas),
+           "warm_launches": warm_launches}
+    images = aot_images()
+    counts = []
+    with service:
+        for i, img in enumerate(images):
+            res = service.predict(img, deadline_ms=120_000)
+            if i == 0:
+                t["first_answer"] = time.time()
+            counts.append(float(res.count))
+    out["counts"] = counts
+    out["aot_hits"] = sum(r.engine.aot_hits for r in fleet.replicas)
+    out["compile_count_after"] = fleet.compile_count
+    shapes, max_batch, dtypes, sizes = fleet._warmup_spec
+    t0 = time.perf_counter()
+    fleet.warmup(shapes, max_batch, dtypes=dtypes, sizes=sizes)
+    out["rewarm_s"] = time.perf_counter() - t0
+    out["launches"] = cc.LAUNCHES  # ... and ends here
+    out["libraries"] = sorted(p.name for p in Path(spec["cache"]).rglob("*.so"))
+    out["t"] = t
+    for r in fleet.replicas:
+        r.engine.release_buffers()
+    Path(spec["out"]).write_text(json.dumps(out))
+    return 0
+
+
+def aot_process(work: Path, tag: str, argv: list, cache: Path, **extra) -> dict:
+    """One fresh serve CLI process (``coldserve_worker``); its result."""
+    leg = work / "aot" / tag
+    leg.mkdir(parents=True, exist_ok=True)
+    spec = leg / "spec.json"
+    spec.write_text(json.dumps({"mode": "coldserve", "argv": argv, "cache": str(cache),
+                                "out": str(leg / "out.json"), "t_launch": time.time(),
+                                **extra}))
+    run_ranks([([sys.executable, str(ROOT / "chip_smoke.py"), "--ddp-worker", str(spec)],
+                dict(os.environ))], work / "aot", tag)
+    return json.loads((leg / "out.json").read_text())
+
+
+def aot_split(tag: str, out: dict) -> None:
+    t, st = out["t"], out["startup"]
+    stages = [("interpreter", t["script"] - t["launch"]),
+              ("import torch", t["torch"] - t["script"]),
+              ("device query", t["device_query"] - t["torch"]),
+              ("package imports", t["imports"] - t["device_query"]),
+              ("CUDA context", t["context"] - t["imports"]),
+              ("cuDNN handle", t["cudnn"] - t["context"]),
+              ("cuBLAS handle", t["cublas"] - t["cudnn"]),
+              (f"kernel library ({st['kernel_source']})", st["kernel_seconds"]),
+              ("weights", st["weights"])]
+    stages += [(f"(weights: {k})", v) for k, v in t["weights_split"].items()
+               if k != "bytes"]
+    stages += [("engines", st["engines"]), ("warmup", st["warmup"]),
+               ("first answer", t["first_answer"] - t["ready"])]
+    rest = (t["ready"] - t["cublas"]) - st["total"]
+    log(f"[aot] {tag}: launch -> first answered request "
+        f"{t['first_answer'] - t['launch']:.2f} s = "
+        + ", ".join(f"{k} {v:.3f}" for k, v in stages)
+        + f" (build_service's other work {rest + st['kernels'] - st['kernel_seconds']:.3f}); "
+        f"time to first ready {t['ready'] - t['launch'] - st.get('bake', 0.0):.2f} s"
+        + (f" (then the bake {st['bake']:.2f} s)" if "bake" in st else "") + "; warmup "
+        f"{st['warmup']:.3f} s against the same grid warmed again "
+        f"{out['rewarm_s']:.3f} s (first launches of {out['warm_launches']} "
+        f"signature launches: +{st['warmup'] - out['rewarm_s']:.3f} s)")
+
+
+def aot_refusals(pth: Path, bundle: Path, work: Path) -> None:
+    """A stale bundle is refused naming its axis, before anything runs:
+    the kernel source hash and the torch version (a tampered copy of the
+    manifest), and the batch geometry (another --max-batch), through
+    ``build_service`` as the CLI exits."""
+    import shutil
+
+    import torch
+
+    from can_tpu_torch.cli import serve as serve_cli
+    from can_tpu_torch.serve.aot import MANIFEST_NAME
+
+    cases = []
+    for axis, edit in (("torch_version", lambda m: m.update(torch_version="0.0")),
+                       ("kernel_sources", lambda m: m["kernel_sources"].update(
+                           context_fused="0" * 16))):
+        stale = work / "aot" / f"stale_{axis}"
+        shutil.rmtree(stale, ignore_errors=True)
+        shutil.copytree(bundle, stale)
+        m = json.loads((stale / MANIFEST_NAME).read_text())
+        edit(m)
+        (stale / MANIFEST_NAME).write_text(json.dumps(m))
+        cases.append((axis, stale, []))
+    cases.append(("max_batch", bundle, ["--max-batch", "4"]))
+    dev = torch.device("cuda", 0)
+    saved = serve_cli.fleet_devices
+    serve_cli.fleet_devices = lambda platform: [dev] * AOT_REPLICAS
+    try:
+        for axis, path, extra in cases:
+            args = serve_cli.parse_args(aot_argv(pth) + ["--aot-bundle", str(path)] + extra)
+            try:
+                serve_cli.build_service(args)
+            except SystemExit as e:
+                msg = str(e)
+            else:
+                fail(f"[aot] a bundle stale on {axis} was served")
+            if not msg.startswith(f"--aot-bundle refused: AOT bundle stale on {axis}"):
+                fail(f"[aot] the bundle stale on {axis} was refused with {msg!r}")
+            log(f"[aot] stale on {axis}: {msg[:150]}")
+    finally:
+        serve_cli.fleet_devices = saved
+
+
+def aot_argv(pth: Path) -> list:
+    return ["--torch-pth", str(pth), "--replicas", str(AOT_REPLICAS),
+            "--max-batch", str(MAX_BATCH), "--deadline-ms", "120000"]
+
+
+def phase_aot(pth: Path, work: Path) -> dict:
+    """The split of a cold serve CLI process with the build directory cold
+    and warm, a bake, a fresh process from the bundle (no nvcc: every
+    library from the bundle, counts bitwise equal to the warm path, AOT
+    hits, no first-seen signature), stale bundles refused."""
+    import shutil
+
+    t_phase = time.perf_counter()
+    base = work / "aot"
+    shutil.rmtree(base, ignore_errors=True)
+    base.mkdir(parents=True)
+    cache, empty, bundle = base / "cache", base / "cache_bundle", base / "bundle"
+    argv = aot_argv(pth)
+    cold = aot_process(work, "cold", argv + ["--compile-cache", str(cache)], cache)
+    warm = aot_process(work, "warm", argv + ["--compile-cache", str(cache),
+                                             "--aot-bake", str(bundle)], cache)
+    aot = aot_process(work, "bundle", argv + ["--compile-cache", str(empty),
+                                              "--aot-bundle", str(bundle)], empty,
+                      no_nvcc=True)
+    for tag, out, source in (("cold", cold, "built"), ("warm", warm, "cache"),
+                             ("bundle", aot, "bundle")):
+        got = {n: b["source"] for n, b in out["build_info"].items()}
+        if got != {"context_fused": source}:
+            fail(f"[aot] {tag}: kernel libraries {got}, want context_fused from {source}")
+        aot_split(tag, out)
+    if aot["libraries"]:
+        fail(f"[aot] the bundle process built {aot['libraries']} into its cache")
+    sigs = cold["compile_count"]
+    # every warmup launch is a context launch: a short count is a plain fallback
+    for tag, out in (("cold", cold), ("warm", warm)):
+        if (out["warm_launches"] != out["compile_count"] or out["warm_aot_hits"]
+                or out["compile_count_after"] != out["compile_count"]):
+            fail(f"[aot] {tag}: warmup launches {out['warm_launches']}, signatures "
+                 f"{out['compile_count']} -> {out['compile_count_after']}, AOT hits "
+                 f"{out['warm_aot_hits']}")
+    if (aot["compile_count"] or aot["compile_count_after"]
+            or aot["warm_aot_hits"] != sigs or aot["warm_launches"] != sigs
+            or aot["aot_hits"] <= aot["warm_aot_hits"]):
+        fail(f"[aot] bundle process: signatures {aot['compile_count']} -> "
+             f"{aot['compile_count_after']}, warmup AOT hits {aot['warm_aot_hits']} and "
+             f"launches {aot['warm_launches']} (want {sigs} each), AOT hits after "
+             f"traffic {aot['aot_hits']}")
+    if not (cold["counts"] == warm["counts"] == aot["counts"]):
+        fail(f"[aot] counts differ: cold {cold['counts']}, warm {warm['counts']}, "
+             f"bundle {aot['counts']}")
+    if not all(np.isfinite(c) for c in aot["counts"]):
+        fail(f"[aot] non-finite counts {aot['counts']}")
+    m = json.loads((bundle / "aot_manifest.json").read_text())
+    log(f"[aot] bundle: {len(m['programs'])} programs on device(s) "
+        f"{sorted({p['device_id'] for p in m['programs']})}, libraries "
+        + ", ".join(f"{lib['name']} ({lib['bytes']} B)" for lib in m["libraries"])
+        + f", device_kind {m['device_kind']!r}, torch {m['torch_version']} cuda "
+        f"{m['cuda_version']}, baked in {m['bake_seconds']} s")
+    log(f"[aot] the bundle process: every library from the bundle (nvcc made to fail, "
+        f"its cache {empty.name} empty), {sigs} warmup launches all AOT hits, "
+        f"{aot['aot_hits']} AOT hits after {len(AOT_IMAGES)} requests, no first-seen "
+        f"signature; the {len(AOT_IMAGES)} counts bitwise equal to the cold and warm "
+        f"processes' ({aot['counts'][0]!r} ...)")
+    first = {tag: out["t"]["ready"] - out["t"]["launch"] - out["startup"].get("bake", 0.0)
+             for tag, out in (("cold build", cold), ("warm cache", warm), ("bundle", aot))}
+    log("[aot] time to first ready: " + ", ".join(f"{k} {v:.2f} s" for k, v in first.items())
+        + "; to the first answered request: "
+        + ", ".join(f"{k} {o['t']['first_answer'] - o['t']['launch']:.2f} s"
+                    for k, o in (("cold build", cold), ("warm cache", warm),
+                                 ("bundle", aot))))
+    aot_refusals(pth, bundle, work)
+    context = sum(out["launches"] for out in (cold, warm, aot))
+    log(f"[aot] the phase took {time.perf_counter() - t_phase:.1f} s; context launches "
+        f"{context}")
+    return {"bn": 0, "bn_backward": 0, "context": context}
 
 
 def phase_obs(pth: Path, work: Path) -> dict:
@@ -4389,14 +4699,18 @@ def ddp_worker(spec_path: Path) -> int:
         out["topology"] = topo
         rank = process_index()
         if spec.get("build_root"):
-            # every rank builds the kernels at once, into a fresh root
+            # every rank builds the kernels at once, into a fresh root: the
+            # build cache the CLIs' --compile-cache auto then finds too
             from can_tpu_torch.ops import _build
+            from can_tpu_torch.utils.compile_cache import enable_compilation_cache
 
-            _build.BUILD_ROOT = Path(spec["build_root"])
+            os.environ["CAN_TPU_COMPILE_CACHE"] = spec["build_root"]
+            enable_compilation_cache()
             t0 = time.perf_counter()
             _build.load_kernel_libraries([cc.KERNEL, cb.KERNEL])
             out["build_s"] = time.perf_counter() - t0
-            out["build_hits"] = {k: v["cache_hit"] for k, v in _build.build_info.items()}
+            out["build_hits"] = {k: v["source"] == "cache"
+                                 for k, v in _build.build_info.items()}
             barrier("kernels-built")
         batch = ddp_batch(Path(spec["root"]), rank, 2)
         out["cases"] = {}
@@ -5187,8 +5501,9 @@ def elastic_data(work: Path) -> Path:
     return root
 
 
-def elastic_argv(root: Path, leg: Path, bf16: bool) -> list:
+def elastic_argv(root: Path, leg: Path, bf16: bool, sp: int = 1) -> list:
     return (["--data_root", str(root), "--syncBN", "--bn-impl", "kernel",
+             "--sp", str(sp),
              "--batch-size", str(ELASTIC_BATCH), "--epochs", "1", "--lr", "1e-6",
              "--seed", str(SEED), "--num-workers", "2", "--prepared-root", "off",
              "--checkpoint-dir", str(leg / "ck"), "--telemetry-dir", str(leg / "tel"),
@@ -5198,8 +5513,10 @@ def elastic_argv(root: Path, leg: Path, bf16: bool) -> list:
 
 def elastic_worker(spec: dict) -> int:
     """One rank of an [elastic] leg: the train CLI with its launch counts,
-    summary and elastic timeline; exits with the CLI's code (143 for the
-    leaver).  ``gloo``: the rank joins a gloo world on cuda:0 first."""
+    summary and elastic timeline, and the stamps of its process's start
+    (the interpreter, torch, the device query, the imports, the CUDA context);
+    exits with the CLI's code (143 for the leaver).  ``gloo``: the rank
+    joins a gloo world on cuda:0 first."""
     import torch
 
     from can_tpu_torch.cli import train as train_cli
@@ -5207,6 +5524,12 @@ def elastic_worker(spec: dict) -> int:
     from can_tpu_torch.ops import cuda_context as cc
     from can_tpu_torch.parallel import init_runtime
 
+    stamps = {"script": T_SCRIPT, "torch": T_TORCH, "device_query": T_AVAIL,
+              "imports": time.time()}
+    dev = torch.device("cuda", 0 if spec["gloo"] else int(os.environ.get("LOCAL_RANK", 0)))
+    torch.zeros(1, device=dev)
+    torch.cuda.synchronize(dev)
+    stamps["context"] = time.time()
     if spec["gloo"]:
         init_runtime(device=torch.device("cuda", 0), backend="gloo")
     cb.reset_launches()
@@ -5216,7 +5539,7 @@ def elastic_worker(spec: dict) -> int:
                 "context": cc.LAUNCHES}  # ... and ends here
     out = {k: summary[k] for k in ("steps", "eval_batches", "epochs", "world_size",
                                    "generations", "topology", "timeline", "exit_code")}
-    out.update(launches=launches, t_launch=spec["t_launch"])
+    out.update(launches=launches, t_launch=spec["t_launch"], stamps=stamps)
     Path(spec["out"]).write_text(json.dumps(out))
     return summary["exit_code"]
 
@@ -5272,9 +5595,10 @@ def _shrink_point_copy(ckpt: Path, dst: Path, manifest: dict) -> None:
 
 
 def elastic_shrinks(root: Path, work: Path, cases: list, counts: dict) -> None:
-    """Each case (tag, base dir, world, leaver, gloo, bf16): ``world`` ranks
-    of the train CLI, ``leaver`` SIGTERMed at a seeded step, then a cold
-    restart at ``world - 1`` from the directory as the shrink left it;
+    """Each case (tag, base dir, world, leaver, gloo, bf16, sp): ``world``
+    ranks of the train CLI at ``--sp sp``, ``leaver`` SIGTERMed at a seeded
+    step (its replica's ``sp`` ranks leave together), then a cold restart
+    at ``world - sp`` ranks from the directory as the shrink left it;
     every gate.  The cases' shrinking runs start together, then their cold
     restarts: each leg's processes share the machine with the other cases'."""
     import shutil
@@ -5286,35 +5610,41 @@ def elastic_shrinks(root: Path, work: Path, cases: list, counts: dict) -> None:
 
     cmds, want = [], []
     for c in cases:
+        sp = c.setdefault("sp", 1)
         shutil.rmtree(c["base"], ignore_errors=True)
         c["faults"] = make_kill_schedule(ELASTIC_KILL_SEED, rank=c["leaver"], max_step=2)
+        c["leavers"] = sorted(el.replica_leavers({c["leaver"]}, n_processes=c["world"],
+                                                 sp=sp))
         cmds += elastic_cmds(c["base"] / "run", elastic_argv(root, c["base"] / "run",
-                                                             c["bf16"]),
+                                                             c["bf16"], sp),
                              c["world"], gloo=c["gloo"], faults=c["faults"])
-        want += [el.LEAVE_EXIT_CODE if r == c["leaver"] else 0 for r in range(c["world"])]
+        want += [el.LEAVE_EXIT_CODE if r in c["leavers"] else 0 for r in range(c["world"])]
     t0 = time.perf_counter()
     run_ranks(cmds, work, "elastic_run", want=want)
     run_s = time.perf_counter() - t0
     cmds = []
     for c in cases:
         tag, base, world, leaver = c["tag"], c["base"], c["world"], c["leaver"]
+        new_world = world - len(c["leavers"])
         c["ranks"] = ranks = elastic_results(base / "run", world)
-        c["survivors"] = survivors = [r for r in range(world) if r != leaver]
+        c["survivors"] = survivors = [r for r in range(world) if r not in c["leavers"]]
         # the survivors' world: renumbered, each on its own card
         for new, old in enumerate(survivors):
             topo = ranks[old]["topology"]
             want_dev = "cuda:0" if c["gloo"] else f"cuda:{old}"
             if (topo["process_count"], topo["process_index"], topo["device"],
-                    ranks[old]["generations"]) != (world - 1, new, want_dev, 2):
+                    ranks[old]["generations"]) != (new_world, new, want_dev, 2):
                 fail(f"[elastic] {tag}: survivor {old} re-formed as {topo} "
                      f"(generations {ranks[old]['generations']}), want rank {new} of "
-                     f"{world - 1} on {want_dev}")
+                     f"{new_world} on {want_dev}")
         ck = base / "run" / "ck"
         c["manifest"] = m = el.load_manifest(str(ck))
         # one elastic.transition per surviving process (each writes its own
         # JSONL), none from the leaver, all the same record
         events = _transitions(base / "run" / "tel")
-        if (m is None or m["leavers"] != [leaver]
+        if (m is None or m["leavers"] != c["leavers"]
+                or m["world_new"] != {"processes": new_world, "dp": new_world // c["sp"],
+                                      "sp": c["sp"], "devices": new_world}
                 or sorted(ev["host_id"] for ev in events) != survivors
                 or any(ev["payload"] != events[0]["payload"] for ev in events)):
             fail(f"[elastic] {tag}: manifest {m}, elastic.transition events {events} "
@@ -5324,23 +5654,25 @@ def elastic_shrinks(root: Path, work: Path, cases: list, counts: dict) -> None:
         consumed = set(m["consumed"])
         if (consumed | set(rem) != set(range(ELASTIC_TRAIN)) or consumed & set(rem)
                 or not rem or t["remaining_items"] != len(rem)
-                or (t["processes_old"], t["processes_new"]) != (world, world - 1)
+                or (t["processes_old"], t["processes_new"]) != (world, new_world)
                 or m["steps_done"] < c["faults"]["faults"][0]["step"]):
             fail(f"[elastic] {tag}: consumed {sorted(consumed)} and remaining {rem} do "
                  f"not partition the epoch's {ELASTIC_TRAIN} items, or the event {t} "
                  f"is off")
-        # the cold restart at world - 1 from the directory as the shrink left it
+        # the cold restart at world - sp from the directory as the shrink left it
         _shrink_point_copy(ck, base / "snap", m)
-        cmds += elastic_cmds(base / "cold", elastic_argv(root, base / "cold", c["bf16"])
-                             + ["--init_checkpoint", str(base / "snap")], world - 1,
-                             gloo=False)
+        cmds += elastic_cmds(base / "cold", elastic_argv(root, base / "cold", c["bf16"],
+                                                         c["sp"])
+                             + ["--init_checkpoint", str(base / "snap")], new_world,
+                             gloo=c["gloo"] and new_world > 1)
     t0 = time.perf_counter()
     run_ranks(cmds, work, "elastic_cold", want=[0] * len(cmds))
     cold_s = time.perf_counter() - t0
     for c in cases:
         tag, base, world, leaver = c["tag"], c["base"], c["world"], c["leaver"]
         ranks, survivors, m = c["ranks"], c["survivors"], c["manifest"]
-        cold = elastic_results(base / "cold", world - 1)
+        new_world = len(survivors)
+        cold = elastic_results(base / "cold", new_world)
         # launches per rank exact: a short count is a plain fallback
         for label, outs in (("run", ranks), ("cold", cold)):
             for r, out in enumerate(outs):
@@ -5353,7 +5685,7 @@ def elastic_shrinks(root: Path, work: Path, cases: list, counts: dict) -> None:
                 for k in counts:
                     counts[k] += got[k]
         cold_events = _transitions(base / "cold" / "tel")
-        if (len(cold_events) != world - 1
+        if (len(cold_events) != new_world
                 or any(ev["payload"]["resumed_from"] != "cold_restart"
                        for ev in cold_events)):
             fail(f"[elastic] {tag}: cold restart recorded {cold_events}")
@@ -5377,15 +5709,16 @@ def elastic_shrinks(root: Path, work: Path, cases: list, counts: dict) -> None:
         sigterm = ranks[leaver]["timeline"]["sigterm"]
         stages = [sigterm] + [tl[k] for k in ELASTIC_STAGES]
         ctl = cold[0]["timeline"]
-        log(f"[elastic] {tag}: {world} ranks, rank {leaver} SIGTERMed at step "
-            f"{c['faults']['faults'][0]['step']} (exit 143), the agreement at step "
+        log(f"[elastic] {tag}: {world} ranks (dp {world // c['sp']} x sp {c['sp']}), "
+            f"rank {leaver} SIGTERMed at step {c['faults']['faults'][0]['step']}, ranks "
+            f"{c['leavers']} exit 143, the agreement at step "
             f"{m['steps_done']}; {len(m['consumed'])} items consumed + "
             f"{len(c['remaining'])} remaining = {ELASTIC_TRAIN}; survivors re-formed at "
-            f"world {world - 1} ("
+            f"world {new_world} (dp {new_world // c['sp']} x sp {c['sp']}, "
             + ("gloo, cuda:0" if c["gloo"] else
                "NCCL, cuda:" + ",".join(str(r) for r in survivors))
             + f"), trained {row_a['steps']} steps and evaluated; one elastic.transition "
-            f"per survivor; the cold restart at world {world - 1} bitwise equal: "
+            f"per survivor; the cold restart at world {new_world} bitwise equal: "
             f"{len(a)} tensors, step {sa['step']}, loss {row_a['train_loss']!r}, MAE "
             f"{row_a['mae']!r}, MSE {row_a['mse']!r}; launches per rank exact "
             + "; ".join(f"rank {r} {o['launches']}" for r, o in enumerate(ranks)))
@@ -5395,6 +5728,21 @@ def elastic_shrinks(root: Path, work: Path, cases: list, counts: dict) -> None:
             f"step); SIGTERM -> first step {tl['first_step'] - sigterm:.2f} s; the cold "
             f"leg: launch -> first step {ctl['first_step'] - cold[0]['t_launch']:.2f} s "
             f"(launch -> the CLI {ctl['start'] - cold[0]['t_launch']:.2f} s)")
+        st = dict(cold[0]["stamps"], launch=cold[0]["t_launch"], **ctl)
+        st["cli_imports"] = st.pop("imports")
+        st["imports"] = cold[0]["stamps"]["imports"]
+        keys = ("launch", "script", "torch", "device_query", "imports", "context", "start",
+                "runtime", "cli_imports", "world", "datasets", "memory", "data", "model",
+                "kernels", "restored", "first_step")
+        names = ("interpreter", "import torch", "device query", "package imports",
+                 "CUDA context", "to the CLI", "validation and runtime",
+                 "the loop's imports", "mesh", "datasets", "memory agreed",
+                 "data planned", "model on the card", "kernel libraries", "restore",
+                 "first step")
+        log(f"[elastic] {tag} cold leg split (s, rank 0): "
+            + ", ".join(f"{n} {st[b] - st[a]:.3f}"
+                        for n, a, b in zip(names, keys, keys[1:]))
+            + f"; launch -> first step {st['first_step'] - st['launch']:.2f}")
     log(f"[elastic] {', '.join(c['tag'] for c in cases)}: the shrinking runs "
         f"{run_s:.1f} s, the cold restarts {cold_s:.1f} s (each leg's processes at "
         f"once)")
@@ -5409,6 +5757,11 @@ def phase_elastic(work: Path) -> dict:
     counts = {"bn": 0, "bn_backward": 0, "context": 0}
     cases = [{"tag": f"2 -> 1 {tag}", "base": work / "elastic" / tag, "world": 2,
               "leaver": 1, "gloo": True, "bf16": tag == "bf16"} for tag in ("f32", "bf16")]
+    # sp: four gloo ranks at dp=2 x sp=2; rank 1 leaves and rank 0, its
+    # replica's partner, with it; ranks 2 and 3 re-form at (1, 2)
+    cases += [{"tag": f"sp (2, 2) -> (1, 2) {tag}", "base": work / "elastic" / f"sp_{tag}",
+               "world": 4, "sp": 2, "leaver": 1, "gloo": True, "bf16": tag == "bf16"}
+              for tag in ("f32", "bf16")]
     elastic_shrinks(root, work / "elastic", cases, counts)
     log(f"[elastic] launches in this phase: {counts}; the phase took "
         f"{time.perf_counter() - t_phase:.1f} s")
@@ -5553,29 +5906,40 @@ def phase_elastic_nccl(work: Path) -> None:
                 f"images per rank: " + " / ".join(f"{t:.1f}" for t in ms)
                 + f" ms by rank (world 1 at {TRAIN_BATCH} images: {step_ms[tag]:.1f} ms)")
     counts = {"bn": 0, "bn_backward": 0, "context": 0}
-    elastic_shrinks(elastic_data(work), work / "elastic_nccl",
+    root = elastic_data(work)
+    elastic_shrinks(root, work / "elastic_nccl",
                     [{"tag": "NCCL 4 -> 3 f32", "base": work / "elastic_nccl" / "f32",
                       "world": 4, "leaver": 0, "gloo": False, "bf16": False}], counts)
+    # (2, 2) -> (1, 2): rank 1 leaves and rank 0 (the writer and coordinator)
+    # with it; ranks 2 and 3 re-form on cuda:2,3, the cold world on cuda:0,1
+    elastic_shrinks(root, work / "elastic_nccl",
+                    [{"tag": "NCCL sp (2, 2) -> (1, 2) f32",
+                      "base": work / "elastic_nccl" / "sp_f32", "world": 4, "sp": 2,
+                      "leaver": 1, "gloo": False, "bf16": False}], counts)
 
 
 def main(argv) -> int:
+    global T_TORCH, T_AVAIL
     import torch
 
+    T_TORCH = time.time()
     measure_only = argv == ["--measure-only"]
     sp_only = argv == ["--sp-only"]
     sp_nccl = argv == ["--sp-nccl"]
     obs_only = argv == ["--obs-only"]
     elastic_only = argv == ["--elastic-only"]
     elastic_nccl = argv == ["--elastic-nccl"]
+    aot_only = argv == ["--aot-only"]
     worker = len(argv) == 2 and argv[0] == "--ddp-worker"
     if argv and not (measure_only or sp_only or sp_nccl or obs_only or elastic_only
-                     or elastic_nccl or worker):
+                     or elastic_nccl or aot_only or worker):
         fail(f"unknown arguments {argv} (none, --measure-only, --sp-only, "
-             f"--sp-nccl, --obs-only, --elastic-only, --elastic-nccl, or "
-             f"--ddp-worker SPEC)")
+             f"--sp-nccl, --obs-only, --elastic-only, --elastic-nccl, --aot-only, "
+             f"or --ddp-worker SPEC)")
 
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke run needs a GPU")
+    T_AVAIL = time.time()
     try:
         import can_tpu_torch
     except ImportError as e:
@@ -5594,6 +5958,9 @@ def main(argv) -> int:
     # once, and the phases before the CLIs' use cuBLAS
     os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
     if worker:
+        spec = json.loads(Path(argv[1]).read_text())
+        if spec["mode"] == "coldserve":
+            return coldserve_worker(spec)
         return ddp_worker(Path(argv[1]))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -5620,10 +5987,13 @@ def main(argv) -> int:
     # to 0.5 and every count to ~1e-8, where parity would prove nothing
     torch.save({k: torch.from_numpy(v) for k, v in
                 random_state_dict(SEED, he=True).items()}, pth)
-    if obs_only:
-        phase_obs(pth, work)
-        phase_obs_train(work)
-        log(f"[smoke] --obs-only done in {time.perf_counter() - t_start:.1f}s")
+    if obs_only or aot_only:
+        if obs_only:
+            phase_obs(pth, work)
+            phase_obs_train(work)
+        else:
+            phase_aot(pth, work)
+        log(f"[smoke] {argv[0]} done in {time.perf_counter() - t_start:.1f}s")
         log(card)
         return 0
     if measure_only:
@@ -5664,6 +6034,7 @@ def main(argv) -> int:
 
     # each phase resets and reads the counts around each path it drives
     paths = {"fleet": phase_fleet(pth, card), "obs": phase_obs(pth, work),
+             "aot": phase_aot(pth, work),
              "determinism": phase_determinism(work),
              "train": phase_train(work), "obs_train": phase_obs_train(work),
              "remat": phase_remat(work),

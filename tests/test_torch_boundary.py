@@ -61,8 +61,9 @@ def test_port_modules_are_found():
               # the device side of obs
               "can_tpu_torch.obs.costs", "can_tpu_torch.obs.trace",
               "can_tpu_torch.utils.profiling",
-              # elastic training
-              "can_tpu_torch.parallel.elastic"):
+              # elastic training (under --sp too) and the cold start
+              "can_tpu_torch.parallel.elastic", "can_tpu_torch.serve.aot",
+              "can_tpu_torch.utils.compile_cache", "can_tpu_torch.ops._build"):
         assert m in mods
     assert (PKG / "csrc" / "context_fused.cu").is_file()
 

@@ -17,7 +17,7 @@ values are compared exactly:
 * the barrier and ``ckpt_io`` fault hooks (typed errors, retries);
 * the runtime's generations (2 -> 1 -> 2 processes) and
   ``env_rendezvous=False``;
-* the train CLI: ``--elastic-check-every 0`` and ``--sp`` refused, the
+* the train CLI: ``--elastic-check-every 0`` and ``--sp 0`` refused, the
   drift guard over a manifest-only checkpoint, an armed run at world 1;
 * ``tools/run_monitor.py --emit-signal`` driving the port's supervisor.
 """
@@ -533,7 +533,7 @@ def _cycles_worker(rdv, nproc, rank):
 # -- the train CLI ---------------------------------------------------------------
 @pytest.mark.parametrize("argv,match", [
     (["--elastic-check-every", "0"], "elastic-check-every"),
-    (["--elastic-dir", "/tmp/x", "--sp", "2"], "item 6b")])
+    (["--elastic-dir", "/tmp/x", "--sp", "0"], "--sp must be >= 1")])
 def test_cli_refuses_before_any_work(argv, match):
     with pytest.raises(SystemExit, match=match):
         train_cli.train(train_cli.parse_args(["--data_root", "/nonexistent"] + argv))

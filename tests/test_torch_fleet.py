@@ -6,7 +6,7 @@ TestFleetServing, TestRollout, TestFleetHTTP and TestFleetCLI, by name,
 on ``devices=[cpu] * k`` (the scale universe is a list of slots); then
 what the port adds: the device guard around every replica body, the
 release of a dead replica's tensors, stream pins over live replicas, no
-CPU fallback without ``devices=``, AOT refused naming ROADMAP item 3c,
+CPU fallback without ``devices=``, AOT refusals (no bundle, a bake before warmup),
 and launch counters that keep every increment across threads.
 
 Full-width CANNet, He-scaled weights from a numpy seed (the JAX tree
@@ -545,15 +545,21 @@ def test_no_devices_and_no_gpu_raises_never_falls_back(params,
         FleetEngine(params, replicas=2)
 
 
-def test_aot_refused_naming_item_3c(params):
-    with pytest.raises(NotImplementedError, match="item 3c"):
+def test_aot_refused_naming_item_3c(params, tmp_path):
+    """AOT bundles are ported (tests/test_torch_aot.py); what is refused
+    now is what JAX refuses: a directory without a bundle, and a bake
+    before warmup."""
+    from can_tpu_torch.serve import AotStaleError
+
+    with pytest.raises(AotStaleError) as e:
         FleetEngine(params, replicas=2, devices=[CPU] * 2,
-                    aot_bundle="/tmp/bundle")
+                    aot_bundle=str(tmp_path / "bundle"))
+    assert e.value.axis == "manifest"
     fleet = FleetEngine(params, replicas=2, devices=[CPU] * 2)
-    for call in (lambda: fleet.bake_aot("/tmp/x"),
-                 lambda: fleet.load_aot("/tmp/x")):
-        with pytest.raises(NotImplementedError, match="item 3c"):
-            call()
+    with pytest.raises(RuntimeError, match="before warmup"):
+        fleet.bake_aot(str(tmp_path / "x"))
+    with pytest.raises(AotStaleError, match="absent or torn"):
+        fleet.load_aot(str(tmp_path / "x"))
 
 
 def test_spare_slots_count_a_repeated_device_per_slot(params):

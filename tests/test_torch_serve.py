@@ -734,9 +734,9 @@ def test_cli_validation_messages_equal_jax(tmp_path, argv):
     # replicas are refused by the device count, before any weights load
     pytest.param(["--replicas", "2"],
                  "replicas=2 exceeds the 1 available devices", id="argv0"),
-    # AOT bundles are not: refused naming their ROADMAP item
+    # with an AOT bake too: the device count refuses it first
     pytest.param(["--replicas", "4", "--aot-bake", "/tmp/x",
-                  "--autoscale-max", "6"], "ROADMAP Queue 1 item 3c",
+                  "--autoscale-max", "6"], "replicas=4 exceeds the 1 available devices",
                  id="argv1")])
 def test_replicas_refused_naming_item_3b(tmp_path, argv, match):
     pth = tmp_path / "a.pth"
@@ -755,9 +755,9 @@ def test_cli_defaults_equal_jax():
 
     mine = vars(cli.parse_args([]))
     theirs = vars(jcli.parse_args([]))
-    # the telemetry flags are shared since the obs slice; the compile
-    # cache waits for ROADMAP Queue 1 item 3c
-    assert set(theirs) - set(mine) == {"compile_cache"}
+    # the telemetry flags are shared since the obs slice, the compile
+    # cache since the cold-start slice
+    assert set(theirs) - set(mine) == set()
     for k in set(mine) & set(theirs):
         assert mine[k] == theirs[k], k
     assert mine["flush_policy"] == "priced" and mine["menu_budget"] is None
